@@ -1,0 +1,20 @@
+"""repro_torch: the PyTorch/CUDA port of the monomorphism-based CGRA mapper.
+
+It sits beside the JAX package (``src/repro``), which stays the reference,
+and mirrors its module paths:
+
+core       the paper's mapping algorithm (CP time solver + exact
+           monomorphism space engine), copied so that deterministic runs are
+           bit-identical to the reference
+obs        the stdlib span tracer the mapper calls
+kernels    lowering of a mapping to per-step tables, and batched execution
+           of the mapped loop on an NVIDIA GPU through a hand-written CUDA
+           kernel (``kernels/csrc/cgra_sim.cu``)
+interop    builds this package's objects from the plain data of a mapping
+           made elsewhere
+
+The package imports torch, numpy and the standard library only. Entry points
+that touch a device run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,68 @@
+"""Carry a mapping made elsewhere into this package, as plain data.
+
+A mapping of the JAX package (or one read from a file) exposes everything
+this package needs as JSON-able values: the DFG as ``dfg.to_json()``, the
+grid's fields, ``ii``, ``t_abs``, ``placement`` and ``routes_spec()``.
+:func:`mapping_from_plain` rebuilds this package's :class:`Mapping` from
+them, and :func:`plain_mapping` takes the same data from any object with
+those attributes — without importing that object's package.
+"""
+
+from __future__ import annotations
+
+from .core.cgra import CGRA
+from .core.dfg import DFG, Route
+from .core.mapper import Mapping
+
+#: The ``CGRA`` fields carried across.
+CGRA_FIELDS = ("rows", "cols", "topology", "registers_per_pe", "pe_classes",
+               "mem_ports", "registers_by_class")
+
+
+def plain_mapping(mapping) -> dict:
+    """The plain data of ``mapping``: JSON-able values only."""
+    cgra = mapping.cgra
+    return {
+        "dfg": mapping.dfg.to_json(),
+        "cgra": {f: getattr(cgra, f) for f in CGRA_FIELDS},
+        "ii": int(mapping.ii),
+        "t_abs": [int(t) for t in mapping.t_abs],
+        "placement": [int(p) for p in mapping.placement],
+        "routes": [tuple(int(x) for x in r) for r in mapping.routes_spec()],
+    }
+
+
+def cgra_from_plain(fields: dict) -> CGRA:
+    """A CGRA from its fields; JSON lists become the tuples CGRA hashes
+    (it normalises ``registers_by_class`` itself)."""
+    kw = dict(fields)
+    if kw.get("pe_classes") is not None:
+        kw["pe_classes"] = tuple(tuple(c) for c in kw["pe_classes"])
+    return CGRA(**kw)
+
+
+def mapping_from_plain(plain: dict) -> Mapping:
+    """This package's Mapping for :func:`plain_mapping`'s data.
+
+    ``plain["dfg"]`` is the mapped (possibly route-rewritten) DFG; its
+    route-through movs were appended from the original node count in
+    ``routes`` order, so the route records are rebuilt from the specs.
+    The result is validated and raises ``ValueError`` if it does not hold.
+    """
+    dfg = DFG.from_json(plain["dfg"])
+    specs = [tuple(s) for s in plain["routes"]]
+    next_id = dfg.num_nodes - sum(n for *_, n in specs)
+    routes = []
+    for src, dst, distance, n_movs in specs:
+        routes.append(Route(src=src, dst=dst, distance=distance,
+                            movs=tuple(range(next_id, next_id + n_movs))))
+        next_id += n_movs
+    mapping = Mapping(
+        dfg=dfg, cgra=cgra_from_plain(plain["cgra"]), ii=plain["ii"],
+        t_abs=list(plain["t_abs"]), placement=list(plain["placement"]),
+        routes=routes,
+    )
+    errs = mapping.validate(registers=False)
+    if errs:
+        raise ValueError(f"carried mapping is invalid: {errs}")
+    return mapping

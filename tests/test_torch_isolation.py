@@ -1,0 +1,72 @@
+"""The port stands alone: no JAX, nothing of the JAX package.
+
+A subprocess with ``jax`` and ``repro`` made unimportable runs the port's
+main path on the CPU, and a scan of the port's sources finds no import of
+either.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_MAIN_PATH = r'''
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+import numpy as np
+from repro_torch.core import CGRA, map_dfg, running_example
+from repro_torch.core.simulate import interpret_dfg
+from repro_torch.kernels.ops import cgra_run, compile_program
+from repro_torch.kernels.ref import cgra_sim_reference
+
+dfg = running_example()
+res = map_dfg(dfg, CGRA(2, 2), deterministic=True)
+assert res.ok and res.mapping.ii == 4, res.reason
+prog = compile_program(res.mapping)
+rng = np.random.default_rng(0)
+inputs = {v: rng.uniform(-4, 4, (5, 8)).astype(np.float32).round(2)
+          for v in prog.input_nodes()}
+outs, trace = cgra_run(prog, inputs, 5, device="cpu")
+_, ref = cgra_sim_reference(prog, inputs, 5)
+assert np.array_equal(trace.numpy(), ref)
+lane0 = interpret_dfg(dfg, {v: [float(x) for x in inputs[v][:, 0]] for v in inputs}, 5)
+for v, stream in lane0.items():
+    assert np.allclose(outs[v][:, 0].numpy(), stream, rtol=1e-6, atol=1e-6)
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("MAIN_PATH_OK")
+'''
+
+
+def test_main_path_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _MAIN_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "MAIN_PATH_OK" in proc.stdout
+
+
+_SOURCES = sorted(
+    [p for p in (ROOT / "src" / "repro_torch").rglob("*")
+     if p.suffix in (".py", ".cu", ".cuh")] + [ROOT / "chip_smoke.py"]
+)
+_FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M),
+    re.compile(r"\bimport\s+repro\b(?!_)"),
+    re.compile(r"\bfrom\s+repro\b(?!_)"),
+    re.compile(r"\brepro\.(?!_)"),
+]
+
+
+@pytest.mark.parametrize("path", _SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_and_no_jax_package(path):
+    text = path.read_text()
+    hits = [m.group(0) for rx in _FORBIDDEN for m in rx.finditer(text)]
+    assert not hits, f"{path.name}: {hits}"
