@@ -4,23 +4,38 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA GPU and the CUDA
-toolkit (``nvcc``); it builds the port's CUDA kernel into ``build/`` first.
-It drives the port's main path — map a loop with the port's mapper, lower
-the mapping, execute it batched on the card through the hand-written
-``cgra_sim`` kernel — and fails (non-zero exit, no result line) if any phase
-fails:
+toolkit (``nvcc``); it builds the port's CUDA kernels into ``build/`` first.
+It drives the port's two paths through the entry points a user calls — map a
+loop with the port's mapper, lower it and execute it batched through the
+hand-written ``cgra_sim`` kernel; serve qwen3-0.6b at full width with its
+prefill attention in the hand-written ``flash_attention`` kernel — and fails
+(non-zero exit, no result line) if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu`` with nvcc;
-3. small programs: the kernel's trace equals the plain PyTorch version on
-   the card (``torch.equal``) and the numpy oracle, and its store streams
-   match the scalar interpreter on lane 0;
-4. main path at full size: hotspot3D, backprop and aes mapped on a 20x20
+2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu`` and
+   ``flash_attention.cu`` with nvcc, one process each, in parallel;
+3. small programs: the cgra_sim kernel's trace equals the plain PyTorch
+   version on the card (``torch.equal``) and the numpy oracle, and its store
+   streams match the scalar interpreter on lane 0;
+4. CGRA path at full size: hotspot3D, backprop and aes mapped on a 20x20
    grid and run over 16384 streams x 64 iterations; kernel launches are
    counted over this phase alone. Each trace equals the plain version on
    the card, and 8 sampled lanes equal the oracle exactly;
-5. timing: the kernel (zero-fill of the trace included) and the plain
-   version, with CUDA events, beside the least time the card could take.
+5. timing of cgra_sim (zero-fill of the trace included) and its plain
+   version, with CUDA events, beside the least time the card could take;
+6. the flash kernel against its plain version on every shape and option of
+   the JAX package's flash sweep, plus D = 256, a ragged S through the
+   padding path and the serve shape (2e-5 in f32, 2e-2 in bf16/f16);
+7. serving path at full width: qwen3-0.6b (28 layers, d 1024, 16/8 heads,
+   head_dim 128, vocab 151936, bf16, seeded random weights) serves 8
+   requests in batches of 4, prompt 2048, 32 generated tokens; flash
+   launches are counted over this phase alone (>= 28 per batch). Prefill and
+   decode are timed and profiled (torch.profiler). In f32, one batch's
+   prefill and teacher-forced decode logits match the same path with the
+   plain attention version;
+8. timing of the flash kernel at the serve shape beside its bound, its plain
+   version and ``scaled_dot_product_attention`` (a yardstick only; the port
+   never calls it).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -28,32 +43,44 @@ the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import CGRA, DFG, Edge, map_dfg, running_example  # noqa: E402
 from repro_torch.core.benchsuite import load_suite  # noqa: E402
 from repro_torch.core.dfg import OP_ARITY  # noqa: E402
 from repro_torch.core.simulate import interpret_dfg  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_padded, flash_attention_torch,
+)
 from repro_torch.kernels.ops import cgra_run, compile_program  # noqa: E402
 from repro_torch.kernels.ref import cgra_sim_reference  # noqa: E402
+from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.models import attention, build_model  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
-# outside the tensor cores, at the full 700 W power limit.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate, at the full
+# 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 FULL_GRID = (20, 20)
 FULL_BATCH = 16384
@@ -61,6 +88,22 @@ FULL_ITERS = 64
 FULL_KERNELS = ("hotspot3D", "backprop", "aes")
 SAMPLED_LANES = 8
 TIMED_RUNS = 10
+
+KERNELS = ("cgra_sim", "flash_attention")
+
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_REQUESTS = 8
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_GEN = 32
+SERVE_CACHE_LEN = SERVE_PROMPT + SERVE_GEN + 8     # as the serve CLI sizes it
+# the serve shape of the flash kernel: qwen3-0.6b prefill of one batch
+SERVE_SHAPE = (SERVE_BATCH, 16, 8, SERVE_PROMPT, 128)
+# f32 logits of the kernel path against the plain-attention path. Logits are
+# O(1); the two attention versions differ by ~1e-6 in f32 (sum order, FMA),
+# which 28 layers may amplify by 10-100x. 1e-4 keeps that margin, while a
+# wrong mask, scale or head mapping moves logits by far more.
+SERVE_F32_TOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -248,6 +291,266 @@ def phase_timing(runs: dict) -> dict:
             f"{bound_ms / ms:.1%} of bound")
     return rows
 
+# ------------------------------------------------------------------ phase 6
+
+def flash_cases():
+    """(label, (b, hq, hkv, s, d), dtype, options): every case of the JAX
+    package's flash sweep (tests/test_kernels_flash.py), then D = 256, f16, a
+    ragged S through the padding path, and the serve shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for s_len in (128, 256, 512):
+        for d in (64, 128):
+            yield f"sweep S{s_len} D{d}", (2, 4, 2, s_len, d), f32, {}
+    for hq, hkv in ((4, 4), (8, 2), (8, 1)):
+        yield f"GQA {hq}/{hkv}", (1, hq, hkv, 256, 64), f32, {}
+    for w in (64, 128, 1000):
+        yield f"window {w}", (1, 2, 2, 256, 64), f32, {"window": w}
+    for cap in (20.0, 50.0):
+        yield f"softcap {cap:g}", (1, 2, 1, 256, 64), f32, {"softcap": cap}
+    yield "non-causal", (1, 2, 2, 128, 64), f32, {"causal": False}
+    gemma2 = {"window": 128, "softcap": 50.0}
+    yield "gemma2 combination", (2, 8, 4, 512, 128), f32, gemma2
+    yield "bf16", (1, 4, 2, 256, 64), bf16, {}
+    yield "D256 gemma2 f32", (2, 8, 4, 512, 256), f32, gemma2
+    yield "D256 gemma2 bf16", (2, 8, 4, 512, 256), bf16, gemma2
+    yield "f16", (1, 4, 2, 256, 128), torch.float16, {}
+    yield "ragged S1000 (padded)", (2, 16, 8, 1000, 128), bf16, {"window": 256, "padded": True}
+    yield "serve shape", SERVE_SHAPE, bf16, {}
+
+
+def qkv(shape, dtype, seed: int = 0):
+    b, hq, hkv, s_len, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(sh, generator=g, device="cuda").to(dtype)
+            for sh in ((b, hq, s_len, d), (b, hkv, s_len, d), (b, hkv, s_len, d))]
+
+
+def phase_flash() -> float:
+    """Each case: the kernel (through its wrapper) against the plain version
+    on the same inputs. Returns the largest |kernel - plain| seen."""
+    worst = 0.0
+    for label, shape, dtype, opts in flash_cases():
+        opts = dict(opts)
+        q, k, v = qkv(shape, dtype)
+        if opts.pop("padded", False):
+            got = flash_attention_padded(q, k, v, **opts)
+            causal = True
+        else:
+            got = flash_attention(q, k, v, **opts)
+            causal = opts.pop("causal", True)
+        torch.cuda.synchronize()
+        want = flash_attention_torch(q, k, v, causal=causal, **opts)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        ok = (got.dtype == dtype and got.shape == q.shape
+              and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+        check(ok, f"flash {label}: kernel != plain version (max |d| {err:.3g}, tol {tol})")
+        worst = max(worst, err)
+        log(f"  ok  {label}: {list(shape)} {str(dtype)[6:]} {opts or ''} "
+            f"max |kernel - plain| {err:.3g} (tol {tol})")
+    return worst
+
+
+# ------------------------------------------------------------------ phase 7
+
+@contextlib.contextmanager
+def plain_attention():
+    """The serving path with the flash kernel's plain version in its place."""
+    kernel = attention.flash_attention_padded
+    attention.flash_attention_padded = (
+        lambda q, k, v, **kw: flash_attention_torch(q, k, v, causal=True, **kw))
+    try:
+        yield
+    finally:
+        attention.flash_attention_padded = kernel
+
+
+def serve_requests(spec, params, queue: list) -> tuple[list, float]:
+    """Serve ``queue`` in batches of SERVE_BATCH through ``serve_batch``;
+    returns each batch's tokens and the host time (ending in the tokens'
+    copy to the host)."""
+    out = []
+    t0 = time.perf_counter()
+    for i in range(0, len(queue), SERVE_BATCH):
+        out.append(serve_batch(spec, params, np.stack(queue[i:i + SERVE_BATCH]),
+                               SERVE_GEN, SERVE_CACHE_LEN))
+    return out, time.perf_counter() - t0
+
+
+def time_serve_steps(spec, params, prompts: np.ndarray) -> tuple[float, float]:
+    """Prefill ms and decode ms per step of one batch (host clock, each
+    ending in a synchronise), after the serve run warmed everything."""
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = spec.prefill(params, tokens, SERVE_CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN - 1):
+        logits, caches = spec.decode_step(params, tok, caches, SERVE_PROMPT + i)
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    return prefill_ms, (time.perf_counter() - t0) * 1e3 / (SERVE_GEN - 1)
+
+
+def profile_serve(spec, params, prompts: np.ndarray) -> None:
+    """Where the serving time goes: a torch.profiler window over one prefill,
+    then one over 4 decode steps. Prints each window's host time, the
+    device's busy share (kernel time over host time) and its top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = spec.prefill(
+            params, torch.as_tensor(prompts, device="cuda"), SERVE_CACHE_LEN)
+
+    def decode():
+        for i in range(4):
+            tok = state["logits"].argmax(-1)[:, None]
+            state["logits"], state["caches"] = spec.decode_step(
+                params, tok, state["caches"], SERVE_PROMPT + i)
+
+    for label, fn in (("prefill", prefill), ("4 decode steps", decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # kernels only: a CPU op's device time is its kernels' time again
+        kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and e.self_device_time_total > 0),
+                         reverse=True)
+        busy_us = sum(k[0] for k in kernels)
+        if not busy_us:
+            log(f"  profile {label}: device time not measured (no device events)")
+            continue
+        log(f"  profile {label}: host {wall_us / 1e3:.2f} ms, device busy "
+            f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}); top kernels:")
+        for us, count, name in kernels[:5]:
+            log(f"    {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{count:<5} {name[:70]}")
+
+
+def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray) -> list:
+    """Prefill logits, then each decode step's logits with ``forced`` tokens."""
+    logits, caches = spec.prefill(params, torch.as_tensor(prompts, device="cuda"),
+                                  SERVE_CACHE_LEN)
+    out = [logits]
+    for i in range(forced.shape[1]):
+        tok = torch.as_tensor(forced[:, i:i + 1], device="cuda")
+        logits, caches = spec.decode_step(params, tok, caches, SERVE_PROMPT + i)
+        out.append(logits)
+    return out
+
+
+def phase_serve() -> int:
+    """Serve the requests, check and time them; returns the flash launches
+    of the serving run."""
+    cfg = get_config(SERVE_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.vocab, cfg.dtype)
+          == (28, 1024, 16, 8, 128, 151936, torch.bfloat16),
+          f"{SERVE_ARCH} is not at full width")
+    spec = build_model(cfg)
+    params = spec.init(0, "cuda")
+    rng = np.random.default_rng(0)
+    queue = [rng.integers(1, cfg.vocab, size=SERVE_PROMPT)
+             for _ in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cgra_sim.launches = 0
+    flash_attention.launches = 0
+    batches, serve_s = serve_requests(spec, params, queue)
+    launches = flash_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_batches = len(batches)
+    log(f"  {SERVE_ARCH}: {spec.param_count(params) / 1e6:.1f} M params, "
+        f"{SERVE_REQUESTS} requests in {n_batches} batches of {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_GEN} generated tokens each")
+    log(f"  flash_attention launches on the serving path: {launches}; "
+        f"cgra_sim launches there: {cgra_sim.launches}")
+    check(launches >= cfg.num_layers * n_batches,
+          f"the serving path launched flash_attention {launches} times, "
+          f"not >= {cfg.num_layers} per batch")
+    for toks in batches:
+        check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"served tokens {toks.shape}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
+    n_tokens = SERVE_REQUESTS * SERVE_GEN
+    prefill_ms, decode_ms = time_serve_steps(spec, params, np.stack(queue[:SERVE_BATCH]))
+    log(f"  served {n_tokens} tokens in {serve_s:.3f} s ({n_tokens / serve_s:.1f} tok/s); "
+        f"prefill {prefill_ms:.2f} ms per batch of {SERVE_BATCH} x {SERVE_PROMPT}, "
+        f"decode {decode_ms:.2f} ms per step; peak device memory {peak_gib:.2f} GiB")
+
+    profile_serve(spec, params, np.stack(queue[:SERVE_BATCH]))
+
+    # bf16: the same batch through the plain attention version
+    with plain_attention():
+        plain_tokens = serve_batch(spec, params, np.stack(queue[:SERVE_BATCH]),
+                                   SERVE_GEN, SERVE_CACHE_LEN)
+    agree = float((plain_tokens == batches[0]).mean())
+    first = float((plain_tokens[:, 0] == batches[0][:, 0]).mean())
+    log(f"  bf16 greedy tokens, kernel vs plain attention: {agree:.1%} equal "
+        f"({first:.0%} of first tokens); not gated (greedy paths part at near-ties)")
+
+    # f32 at full width: the kernel path against the plain-attention path
+    del params
+    torch.cuda.empty_cache()
+    spec32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    params32 = spec32.init(0, "cuda")
+    prompts = np.stack(queue[:SERVE_BATCH])
+    forced = batches[0][:, : SERVE_GEN - 1]
+    got = teacher_forced_logits(spec32, params32, prompts, forced)
+    with plain_attention():
+        want = teacher_forced_logits(spec32, params32, prompts, forced)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    for i, (a, b) in enumerate(zip(got, want)):
+        what = "prefill" if i == 0 else f"decode step {i}"
+        check(a.shape == (SERVE_BATCH, cfg.vocab) and bool(torch.isfinite(a).all()),
+              f"f32 {what}: logits {tuple(a.shape)} not finite or misshapen")
+        check(torch.allclose(a, b, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
+              f"f32 {what}: kernel path != plain-attention path "
+              f"(max |d| {errs[i]:.3g}, tol {SERVE_F32_TOL})")
+    log(f"  f32 full width, one batch: prefill logits max |d| {errs[0]:.3g}, "
+        f"{len(errs) - 1} teacher-forced decode steps max |d| {max(errs[1:]):.3g} "
+        f"(tol {SERVE_F32_TOL}, logits max |x| {float(got[0].abs().max()):.3g})")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 8
+
+def flash_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Least time for the card at ``shape`` (causal): the FLOPs of the two
+    products over the unmasked pairs, over the bf16 tensor-core peak, or
+    q, k, v and out read or written once over HBM bandwidth."""
+    b, hq, hkv, s_len, d = shape
+    flops = 4 * b * hq * d * s_len * (s_len + 1) // 2
+    nbytes = 2 * (b * hq + b * hkv) * s_len * d * itemsize
+    by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def phase_flash_timing() -> dict:
+    q, k, v = qkv(SERVE_SHAPE, torch.bfloat16, seed=1)
+    ms = time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS)
+    plain_ms = time_ms(lambda: flash_attention_torch(q, k, v), 3)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), TIMED_RUNS)
+    bound_ms, bound_by = flash_bound(SERVE_SHAPE, q.element_size())
+    log(f"  serve shape {list(SERVE_SHAPE)} bf16 causal: kernel {ms:.4f} ms "
+        f"(median of {TIMED_RUNS}), plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -264,8 +567,10 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    lib = _build.build("cgra_sim", verbose=True)
-    log(f"[2] build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:      # one nvcc per source
+        libs = list(pool.map(lambda name: _build.build(name, verbose=True), KERNELS))
+    log(f"[2] build: {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("[3] small programs: kernel vs plain version, oracle and interpreter")
     phase_small()
@@ -275,6 +580,7 @@ def main() -> int:
     suite = load_suite(list(FULL_KERNELS))
     torch.cuda.reset_peak_memory_stats()
     cgra_sim.launches = 0
+    flash_attention.launches = 0
     runs = drive_main_path(suite)
     launches = cgra_sim.launches
     log(f"  cgra_sim launches on the main path: {launches}; peak device memory "
@@ -290,6 +596,19 @@ def main() -> int:
     log(f"[5] timing on {smi}")
     rows = phase_timing(runs)
     main_row = rows[FULL_KERNELS[0]]
+    del runs, rows
+    torch.cuda.empty_cache()
+
+    log("[6] flash_attention kernel vs its plain version")
+    flash_err = phase_flash()
+
+    log(f"[7] serving path: {SERVE_ARCH} at full width, {SERVE_REQUESTS} requests, "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} generated tokens")
+    flash_launches = phase_serve()
+
+    log(f"[8] flash_attention timing on {smi}")
+    flash_row = phase_flash_timing()
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
@@ -302,6 +621,18 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": flash_launches,
+        "max_abs_err": flash_err,
+        "ms": flash_row["ms"],
+        "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -9,9 +9,14 @@ core       the paper's mapping algorithm (CP time solver + exact
 obs        the stdlib span tracer the mapper calls
 kernels    lowering of a mapping to per-step tables, and batched execution
            of the mapped loop on an NVIDIA GPU through a hand-written CUDA
-           kernel (``kernels/csrc/cgra_sim.cu``)
-interop    builds this package's objects from the plain data of a mapping
-           made elsewhere
+           kernel (``kernels/csrc/cgra_sim.cu``); fused flash attention for
+           the LM zoo (``kernels/csrc/flash_attention.cu``)
+configs    the architecture registry (plain data)
+models     the LM model zoo's dense family: layers, GQA attention, the
+           decoder-LM assembly and ``build_model``
+launch     the batched serving entry point (``launch/serve.py``)
+interop    builds this package's objects from the plain data of a mapping,
+           or from an LM parameter tree of numpy arrays, made elsewhere
 
 The package imports torch, numpy and the standard library only. Entry points
 that touch a device run on CUDA unless the caller passes ``device="cpu"``.

@@ -1,4 +1,4 @@
-"""Carry a mapping made elsewhere into this package, as plain data.
+"""Carry a mapping or a model's parameters made elsewhere into this package.
 
 A mapping of the JAX package (or one read from a file) exposes everything
 this package needs as JSON-able values: the DFG as ``dfg.to_json()``, the
@@ -6,9 +6,15 @@ grid's fields, ``ii``, ``t_abs``, ``placement`` and ``routes_spec()``.
 :func:`mapping_from_plain` rebuilds this package's :class:`Mapping` from
 them, and :func:`plain_mapping` takes the same data from any object with
 those attributes — without importing that object's package.
+
+:func:`lm_params_from_numpy` turns an LM parameter tree of numpy arrays (the
+JAX package's, converted leaf by leaf) into this package's parameters.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from .core.cgra import CGRA
 from .core.dfg import DFG, Route
@@ -66,3 +72,41 @@ def mapping_from_plain(plain: dict) -> Mapping:
     if errs:
         raise ValueError(f"carried mapping is invalid: {errs}")
     return mapping
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bf16 (numpy's
+    ``ml_dtypes`` extension type) goes through a ``uint16`` view."""
+    a = np.array(a)                   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """This package's LM parameters from a tree of numpy arrays.
+
+    ``tree`` has the JAX package's keys, with each layer stack's leaves
+    stacked on a leading ``[L, ...]`` axis; each stack becomes a list of L
+    per-layer dicts, as this package's ``models.build`` keeps them. Dtypes
+    are kept.
+    """
+    def convert(node, layer=None):
+        if isinstance(node, dict):
+            return {k: convert(v, layer) for k, v in node.items()}
+        return _tensor(node if layer is None else node[layer], device)
+
+    out = {}
+    for key, node in tree.items():
+        if key.endswith("_stack"):
+            num_layers = len(_first_leaf(node))
+            out[key] = [convert(node, i) for i in range(num_layers)]
+        else:
+            out[key] = convert(node)
+    return out
+
+
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node

@@ -21,15 +21,21 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# No fast math: the kernels must round exactly as numpy's float32 does.
-NVCC_FLAGS = (
+_BASE_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-fmad=false",
-    "-shared",
-    "-Xcompiler", "-fPIC",
 )
+_LIB_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
+
+# No fast math and no FMA contraction: cgra_sim must round exactly as
+# numpy's float32 does.
+NVCC_FLAGS = (*_BASE_FLAGS, "-fmad=false", *_LIB_FLAGS)
+
+#: Flags of each kernel that does not take NVCC_FLAGS. flash_attention is
+#: held to a tolerance, not bit for bit, so it keeps nvcc's FMA contraction
+#: (still no fast math: expf and tanhf stay accurate).
+KERNEL_FLAGS = {"flash_attention": (*_BASE_FLAGS, *_LIB_FLAGS)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -60,15 +66,16 @@ def build(name: str, *, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` into ``build/kernels`` unless already
     built; returns the library's path."""
     src = _CSRC / f"{name}.cu"
+    flags = KERNEL_FLAGS.get(name, NVCC_FLAGS)
     digest = hashlib.sha1(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        src.read_bytes() + "\0".join(flags).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [nvcc_path(), *flags, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

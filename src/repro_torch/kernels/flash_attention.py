@@ -1,0 +1,226 @@
+"""Fused flash attention (forward) for the LM model zoo on the GPU.
+
+The port of the JAX package's ``kernels/flash_attention.py::_flash_kernel``:
+
+* :func:`flash_attention` is the wrapper of the hand-written CUDA kernel
+  ``csrc/flash_attention.cu``. It keeps the reference's signature (less
+  ``interpret``) and validation. On a CUDA tensor it launches the kernel or
+  raises; on a CPU tensor it runs :func:`flash_attention_torch`.
+  ``flash_attention.launches`` counts the kernel's launches.
+* :func:`flash_attention_torch` is the plain PyTorch version of the same
+  function, blocked the same way as the reference kernel: an online softmax
+  over kv blocks with f32 running max, denominator and accumulator,
+  skipping blocks the masks empty. The CPU path and the on-card comparisons
+  use it.
+* :func:`flash_attention_padded` serves any sequence length on the causal
+  path, padding the end up to the block.
+
+Supported variants: causal masking, sliding-window masking (``q - k <
+window``), logit soft-capping (``cap * tanh(s / cap)``) and GQA (kv head =
+``h // (Hq // Hkv)``). Fully masked rows give 0; the output has q's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+#: dtype codes of the CUDA kernel's C interface
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its C signatures declared (built on first
+    use: importing this module needs no CUDA toolkit)."""
+    from . import _build
+
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _blocks(s_len: int, hq: int, hkv: int, block_q: int, block_kv: int):
+    """The reference's validation; returns the effective blocks."""
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    bq = min(block_q, s_len)
+    bkv = min(block_kv, s_len)
+    if s_len % bq or s_len % bkv:
+        raise ValueError(f"seq len {s_len} not divisible by blocks {bq},{bkv}")
+    return bq, bkv
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    b, hq, s_len, d = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes f32, bf16 or f16, not {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must have q's dtype and device "
+                             f"({q.dtype}, {q.device}), got {t.dtype}, {t.device}")
+        if t.dim() != 4 or t.shape[0] != b or t.shape[2:] != (s_len, d):
+            raise ValueError(f"{name} must be [{b}, Hkv, {s_len}, {d}], "
+                             f"got {list(t.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {list(k.shape)} and v {list(v.shape)} differ")
+    if d % 32 or not 32 <= d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes a multiple of 32 up to 256")
+    if b * hq > 65535:
+        raise ValueError(f"batch * q heads = {b * hq} exceeds the grid's 65535")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernel's vector loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(
+    q: torch.Tensor,   # [B, Hq, S, D]
+    k: torch.Tensor,   # [B, Hkv, S, D]
+    v: torch.Tensor,   # [B, Hkv, S, D]
+    *,
+    sm_scale: float | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """Attention of q over k/v; returns [B, Hq, S, D] in q's dtype.
+
+    Raises ``ValueError`` if Hq is not a multiple of Hkv or S is not
+    divisible by ``min(block_q, S)`` and ``min(block_kv, S)``, as the
+    reference does. A CUDA tensor launches the CUDA kernel on the current
+    stream (no synchronisation), whose own tiling does not depend on the
+    blocks; a CPU tensor runs :func:`flash_attention_torch` with them.
+    """
+    b, hq, s_len, d = q.shape
+    bq, bkv = _blocks(s_len, hq, k.shape[1], block_q, block_kv)
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, sm_scale=sm_scale, causal=causal,
+                                     window=window, softcap=softcap,
+                                     block_q=bq, block_kv=bkv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_cuda(q, k, v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    # a window >= S never masks; one <= -S masks all a window can
+    has_window = window is not None and window < s_len
+    win = max(int(window), -s_len) if has_window else 0
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, hq, k.shape[1], s_len, d, float(sm_scale),
+            int(causal), int(has_window), win, int(softcap is not None),
+            float(softcap or 0.0), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "flash_attention launch failed: "
+            f"{lib.flash_attention_error_string(err).decode()}"
+        )
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_torch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention` on any device.
+
+    Query blocks of ``block_q`` rows each run an online softmax over the kv
+    blocks of ``block_kv`` keys that their masks leave non-empty, with the
+    reference kernel's f32 statistics and its guard for fully masked rows.
+    Any S is taken: the last blocks may be short.
+    """
+    b, hq, s_len, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    qf = q.float().reshape(b, hkv, group, s_len, d)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s_len, device=q.device)
+    out = torch.empty_like(qf)
+    for q0 in range(0, s_len, block_q):
+        q1 = min(q0 + block_q, s_len)
+        lo = 0 if window is None else max(0, q0 - window + 1) // block_kv * block_kv
+        hi = q1 if causal else s_len
+        m = torch.full((b, hkv, group, q1 - q0, 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, group, q1 - q0, d), device=q.device)
+        for k0 in range(lo, hi, block_kv):
+            k1 = min(k0 + block_kv, s_len)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q1],
+                             kf[:, :, k0:k1]) * sm_scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            qp, kp = pos[q0:q1, None], pos[None, k0:k1]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kp <= qp
+            if window is not None:
+                mask &= qp - kp < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            safe = m_new > NEG_INF / 2
+            p = torch.where(safe, torch.exp(s - m_new), 0.0)
+            alpha = torch.where(safe, torch.exp(m - m_new), 0.0)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p @ vf[:, :, None, k0:k1]
+            m = m_new
+        out[:, :, :, q0:q1] = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(b, hq, s_len, d).to(q.dtype)
+
+
+def flash_attention_padded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Causal :func:`flash_attention` (default blocks, 128) for any S.
+
+    An S above 128 that is not a multiple of it is padded at the end to the
+    next multiple, and the padded query rows are dropped. This is exact
+    under the causal mask: every padded key comes after every real query.
+    (An S up to 128 is one block already.)
+    """
+    s_len = q.shape[2]
+    pad = (-s_len) % 128 if s_len > 128 else 0
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    out = flash_attention(q, k, v, sm_scale=sm_scale, causal=True,
+                          window=window, softcap=softcap)
+    return out[:, :, :s_len] if pad else out

@@ -1,21 +1,64 @@
-"""The executor's oracle, in numpy on the host.
+"""Oracles for the package's kernels.
 
-``cgra_sim_reference`` executes the same compiled program as the cgra_sim
-kernel with integer-indexed reads from the full value trace and the dense
-host injection of ``build_injection``, one (cycle, PE) at a time; it is the
-JAX package's ``kernels/ref.py::cgra_sim_reference``. Scalar semantics are
-the ALU of core.simulate, in float32.
+``reference_attention`` is the direct-softmax oracle of the flash-attention
+kernel, a torch copy of the JAX package's ``kernels/ref.py``
+``reference_attention``: whole [S, S] score matrices in f32, no tiling, so it
+shares no structure with the kernel or its blocked plain version.
+
+``cgra_sim_reference`` is the executor's oracle, in numpy on the host. It
+executes the same compiled program as the cgra_sim kernel with
+integer-indexed reads from the full value trace and the dense host injection
+of ``build_injection``, one (cycle, PE) at a time; it is the JAX package's
+``kernels/ref.py::cgra_sim_reference``. Scalar semantics are the ALU of
+core.simulate, in float32.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.simulate import OPCODES
 from .ops import CGRAProgram, build_injection, num_cycles
 
 _F = np.float32
 _NAMES = {v: k for k, v in OPCODES.items()}
+
+
+def reference_attention(
+    q: torch.Tensor,   # [B, Hq, S, D]
+    k: torch.Tensor,   # [B, Hkv, S, D]
+    v: torch.Tensor,   # [B, Hkv, S, D]
+    *,
+    sm_scale: float | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Direct-softmax oracle for kernels/flash_attention.py (f32 math);
+    fully masked rows give 0. The output has q's dtype."""
+    b, hq, s_len, d = q.shape
+    group = hq // k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(s_len, device=q.device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    mask = torch.ones((s_len, s_len), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    # fully-masked rows: softmax of all -1e30 is uniform garbage; zero them
+    p = torch.where(mask.any(-1)[:, None], p, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
 
 
 def _mask16(x: np.ndarray) -> np.ndarray:

@@ -1,0 +1,47 @@
+"""build_model: ArchConfig -> ModelSpec, for the dense family.
+
+The PyTorch counterpart of the JAX package's ``src/repro/models/zoo.py``.
+Only ``family == "dense"`` is ported (qwen3-0.6b, gemma2-9b, gemma2-27b,
+mistral-nemo-12b); the others raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from . import build as lm
+from .api import ArchConfig, ModelSpec
+from .attention import NOT_PORTED
+
+def build_model(cfg: ArchConfig) -> ModelSpec:
+    """The serving surface of ``cfg``'s model: ``init(seed, device)``,
+    ``prefill(params, tokens, cache_len)``, ``decode_step(params, token,
+    caches, pos)`` and ``make_caches(params, batch, cache_len)``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: {NOT_PORTED}")
+    lm.check_ported(cfg)
+
+    def init(seed, device="cuda"):
+        return lm._lm_init(seed, cfg, device)
+
+    def prefill(params, batch, cache_len):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        return lm.lm_prefill(params, cfg, tokens, cache_len)
+
+    def decode_step(params, token, caches, pos):
+        return lm.lm_decode_step(params, cfg, token, caches, pos)
+
+    def make_caches(params, batch, cache_len):
+        return lm.lm_make_caches(params, cfg, batch, cache_len)
+
+    return ModelSpec(cfg=cfg, init=init, prefill=prefill,
+                     decode_step=decode_step, make_caches=make_caches,
+                     param_count=param_count)
+
+
+def param_count(params) -> int:
+    """Elements in a parameter tree of dicts and lists of tensors."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on a GPU.
+"""The CUDA kernels against their plain PyTorch versions, on a GPU.
 
 Needs a CUDA GPU and the CUDA toolkit; skipped elsewhere. Run on the card
 with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
@@ -11,9 +11,15 @@ import torch
 
 from repro_torch.core import CGRA, map_dfg, running_example
 from repro_torch.core.benchsuite import load_suite
+from repro_torch.configs import get_config
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_padded, flash_attention_torch,
+)
 from repro_torch.kernels.ops import cgra_run, compile_program
 from repro_torch.kernels.ref import cgra_sim_reference
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.gpu
 
@@ -63,3 +69,78 @@ def test_kernel_rejects_bad_input(cuda):
         cgra_sim(prog.sim_tables(), x)                        # tables on the host
     with pytest.raises(ValueError, match="contiguous"):
         cgra_sim(tables, x.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+# --------------------------------------------------------- flash attention
+
+def _qkv(b, hq, hkv, s, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), device=device).to(dtype)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+# f32 within 2e-5 and bf16/f16 within 2e-2: the JAX package's own tolerances
+@pytest.mark.parametrize("case", [
+    ((2, 4, 2, 256, 32), torch.float32, {}),
+    ((2, 4, 2, 256, 96), torch.float32, {}),
+    ((1, 8, 1, 512, 128), torch.float32, {}),
+    ((1, 2, 2, 128, 64), torch.float32, {"causal": False}),
+    ((1, 2, 2, 256, 64), torch.float32, {"window": 64, "softcap": 20.0}),
+    ((2, 8, 4, 512, 256), torch.float32, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 2, 256, 64), torch.bfloat16, {}),
+    ((1, 4, 2, 256, 128), torch.float16, {"window": 1000}),
+    ((2, 4, 2, 48, 64), torch.bfloat16, {}),
+])
+def test_flash_kernel_matches_plain(cuda, case):
+    shape, dtype, kw = case
+    q, k, v = _qkv(*shape, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_torch(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_padded_path_on_the_card(cuda):
+    q, k, v = _qkv(1, 4, 2, 1000, 128, torch.bfloat16, cuda)
+    got = flash_attention_padded(q, k, v, window=256, softcap=50.0)
+    want = flash_attention_torch(q, k, v, window=256, softcap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernel_rejects_bad_input(cuda):
+    q, k, v = _qkv(1, 2, 2, 128, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="f32, bf16 or f16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k.half(), v)
+    q, k, v = _qkv(1, 2, 2, 128, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        flash_attention(q, k, v)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_reduced_serve_on_the_card_launches_flash(cuda):
+    """One kernel launch per layer per prefill; the card's f32 prefill logits
+    match the CPU path's (plain attention) within 1e-4."""
+    spec = build_model(get_config("gemma2-9b").reduced())
+    params = spec.init(0, cuda)
+    prompts = np.random.default_rng(1).integers(1, spec.cfg.vocab, size=(2, 136))
+    before = flash_attention.launches
+    tokens = serve_batch(spec, params, prompts, 4, 150)
+    assert flash_attention.launches - before == spec.cfg.num_layers
+    assert tokens.shape == (2, 4)
+    cpu = _to(params, "cpu")
+    got, _ = spec.prefill(params, torch.as_tensor(prompts, device=cuda), 150)
+    want, _ = spec.prefill(cpu, torch.as_tensor(prompts), 150)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

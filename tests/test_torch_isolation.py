@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-A subprocess with ``jax`` and ``repro`` made unimportable runs the port's
-main path on the CPU, and a scan of the port's sources finds no import of
-either.
+Subprocesses with ``jax`` and ``repro`` made unimportable run the port's
+main path and its reduced serve path on the CPU, and a scan of the port's
+sources finds no import of either.
 """
 
 import os
@@ -51,6 +51,31 @@ def test_main_path_runs_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "MAIN_PATH_OK" in proc.stdout
+
+
+_SERVE_PATH = r'''
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.serve import main
+main(["--arch", "gemma2-9b", "--reduced", "--device", "cpu", "--requests", "2",
+      "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+assert flash_attention.launches == 0  # CPU tensors take the plain version
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("SERVE_PATH_OK")
+'''
+
+
+def test_serve_path_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _SERVE_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "served 2 requests / 6 tokens" in proc.stdout
+    assert "SERVE_PATH_OK" in proc.stdout
 
 
 _SOURCES = sorted(
