@@ -23,19 +23,24 @@ prefill attention in the hand-written ``flash_attention`` kernel — and fails
    the card, and 8 sampled lanes equal the oracle exactly;
 5. timing of cgra_sim (zero-fill of the trace included) and its plain
    version, with CUDA events, beside the least time the card could take;
-6. the flash kernel against its plain version on every shape and option of
-   the JAX package's flash sweep, plus D = 256, a ragged S through the
-   padding path and the serve shape (2e-5 in f32, 2e-2 in bf16/f16);
+6. the flash kernels against their plain version on every shape and option
+   of the JAX package's flash sweep in f32 (CUDA-core kernel) and in bf16
+   (tensor-core kernel), plus D = 192 and 256, f16, S below one tile, all
+   rows masked, a ragged S through the padding path and the serve shape
+   (2e-5 in f32, 2e-2 in bf16/f16); each case checks which kernel ran;
 7. serving path at full width: qwen3-0.6b (28 layers, d 1024, 16/8 heads,
    head_dim 128, vocab 151936, bf16, seeded random weights) serves 8
    requests in batches of 4, prompt 2048, 32 generated tokens; flash
-   launches are counted over this phase alone (>= 28 per batch). Prefill and
-   decode are timed and profiled (torch.profiler). In f32, one batch's
-   prefill and teacher-forced decode logits match the same path with the
-   plain attention version;
-8. timing of the flash kernel at the serve shape beside its bound, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick only; the port
-   never calls it).
+   launches, and those of the tensor-core kernel, are counted over this
+   phase alone (each >= 28 per batch). Prefill and decode are timed and
+   profiled (torch.profiler). The kernel is held against its plain version
+   on the q/k/v that layers 0 and 27 produce in a bf16 prefill. In f32, one
+   batch's prefill and teacher-forced decode logits match the same path
+   with the plain attention version;
+8. timing of the flash kernel at the serve shape in turns with
+   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
+   it), beside its bound and its plain version, and of the CUDA-core kernel
+   on the same shape in f32.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -88,6 +93,7 @@ FULL_ITERS = 64
 FULL_KERNELS = ("hotspot3D", "backprop", "aes")
 SAMPLED_LANES = 8
 TIMED_RUNS = 10
+FLASH_INNER = 10      # flash launches per timing (see time_ms)
 
 KERNELS = ("cgra_sim", "flash_attention")
 
@@ -243,18 +249,22 @@ def check_full(name: str, run: dict) -> float:
 
 # ------------------------------------------------------------------ phase 5
 
-def time_ms(fn, runs: int) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn`` after one warm-up."""
+def time_ms(fn, runs: int, inner: int = 1) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn`` after one warm-up;
+    each timing spans ``inner`` calls back to back and is divided by it, so
+    that a sub-millisecond kernel is not timed with the host's enqueue gap
+    before it."""
     fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -295,27 +305,41 @@ def phase_timing(runs: dict) -> dict:
 
 def flash_cases():
     """(label, (b, hq, hkv, s, d), dtype, options): every case of the JAX
-    package's flash sweep (tests/test_kernels_flash.py), then D = 256, f16, a
-    ragged S through the padding path, and the serve shape."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    for s_len in (128, 256, 512):
-        for d in (64, 128):
-            yield f"sweep S{s_len} D{d}", (2, 4, 2, s_len, d), f32, {}
-    for hq, hkv in ((4, 4), (8, 2), (8, 1)):
-        yield f"GQA {hq}/{hkv}", (1, hq, hkv, 256, 64), f32, {}
-    for w in (64, 128, 1000):
-        yield f"window {w}", (1, 2, 2, 256, 64), f32, {"window": w}
-    for cap in (20.0, 50.0):
-        yield f"softcap {cap:g}", (1, 2, 1, 256, 64), f32, {"softcap": cap}
-    yield "non-causal", (1, 2, 2, 128, 64), f32, {"causal": False}
+    package's flash sweep (tests/test_kernels_flash.py) in f32 and in bf16,
+    so that every option reaches both kernels, then D = 192 and 256, f16, S
+    below one tile, a ragged S through the padding path and the serve
+    shape."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    sweep = [(f"S{s_len} D{d}", (2, 4, 2, s_len, d), {})
+             for s_len in (128, 256, 512) for d in (64, 128)]
+    sweep += [(f"GQA {hq}/{hkv}", (1, hq, hkv, 256, 64), {})
+              for hq, hkv in ((4, 4), (8, 2), (8, 1))]
+    sweep += [(f"window {w}", (1, 2, 2, 256, 64), {"window": w}) for w in (64, 128, 1000)]
+    sweep += [(f"softcap {cap:g}", (1, 2, 1, 256, 64), {"softcap": cap})
+              for cap in (20.0, 50.0)]
+    sweep += [("non-causal", (1, 2, 2, 128, 64), {"causal": False})]
     gemma2 = {"window": 128, "softcap": 50.0}
-    yield "gemma2 combination", (2, 8, 4, 512, 128), f32, gemma2
-    yield "bf16", (1, 4, 2, 256, 64), bf16, {}
-    yield "D256 gemma2 f32", (2, 8, 4, 512, 256), f32, gemma2
-    yield "D256 gemma2 bf16", (2, 8, 4, 512, 256), bf16, gemma2
-    yield "f16", (1, 4, 2, 256, 128), torch.float16, {}
+    sweep += [("gemma2 combination", (2, 8, 4, 512, 128), gemma2)]
+    for dtype in (f32, bf16):
+        for label, shape, opts in sweep:
+            yield f"sweep {label}", shape, dtype, opts
+    yield "D256 gemma2", (2, 8, 4, 512, 256), f32, gemma2
+    yield "D256 gemma2", (2, 8, 4, 512, 256), bf16, gemma2
+    yield "D192", (1, 4, 2, 256, 192), bf16, {}
+    yield "D192 window 100", (1, 4, 2, 256, 192), f16, {"window": 100}
+    yield "D96 (CUDA cores)", (1, 4, 2, 256, 96), bf16, {}
+    yield "f16", (1, 4, 2, 256, 128), f16, {}
+    yield "f16 D64", (1, 4, 2, 256, 64), f16, {}
+    yield "S48 (one short tile)", (2, 4, 2, 48, 64), bf16, {}
+    yield "window 0 (all masked)", (1, 2, 2, 256, 128), bf16, {"window": 0}
     yield "ragged S1000 (padded)", (2, 16, 8, 1000, 128), bf16, {"window": 256, "padded": True}
     yield "serve shape", SERVE_SHAPE, bf16, {}
+
+
+def tensor_core_path(dtype, d: int) -> bool:
+    """Whether flash_attention takes the tensor-core kernel (else the
+    CUDA-core one): bf16/f16 at a head dim of whole 64-column boxes."""
+    return dtype != torch.float32 and d in (64, 128, 192, 256)
 
 
 def qkv(shape, dtype, seed: int = 0):
@@ -327,11 +351,13 @@ def qkv(shape, dtype, seed: int = 0):
 
 def phase_flash() -> float:
     """Each case: the kernel (through its wrapper) against the plain version
-    on the same inputs. Returns the largest |kernel - plain| seen."""
+    on the same inputs, and the kernel the wrapper chose. Returns the
+    largest |kernel - plain| seen."""
     worst = 0.0
     for label, shape, dtype, opts in flash_cases():
         opts = dict(opts)
         q, k, v = qkv(shape, dtype)
+        tc_before = flash_attention.tensor_core_launches
         if opts.pop("padded", False):
             got = flash_attention_padded(q, k, v, **opts)
             causal = True
@@ -339,6 +365,9 @@ def phase_flash() -> float:
             got = flash_attention(q, k, v, **opts)
             causal = opts.pop("causal", True)
         torch.cuda.synchronize()
+        on_tc = flash_attention.tensor_core_launches - tc_before
+        check(on_tc == int(tensor_core_path(dtype, shape[-1])),
+              f"flash {label}: {on_tc} tensor-core launches for {dtype} D {shape[-1]}")
         want = flash_attention_torch(q, k, v, causal=causal, **opts)
         tol = 2e-5 if dtype == torch.float32 else 2e-2
         err = float((got.float() - want.float()).abs().max())
@@ -346,13 +375,38 @@ def phase_flash() -> float:
               and bool(torch.isfinite(got).all())
               and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
         check(ok, f"flash {label}: kernel != plain version (max |d| {err:.3g}, tol {tol})")
+        if opts.get("window") == 0:
+            check(bool((got == 0).all()), f"flash {label}: fully masked rows are not 0")
         worst = max(worst, err)
-        log(f"  ok  {label}: {list(shape)} {str(dtype)[6:]} {opts or ''} "
+        path = "tensor cores" if on_tc else "CUDA cores"
+        log(f"  ok  {label}: {list(shape)} {str(dtype)[6:]} {opts or ''} [{path}] "
             f"max |kernel - plain| {err:.3g} (tol {tol})")
     return worst
 
 
 # ------------------------------------------------------------------ phase 7
+
+@contextlib.contextmanager
+def captured_attention(layers: tuple) -> dict:
+    """The serving path with the flash kernel's inputs recorded: the dict
+    maps each call index in ``layers`` (one call per layer in a prefill) to
+    its q, k, v and keywords."""
+    kernel = attention.flash_attention_padded
+    seen = {}
+    calls = iter(range(10**9))
+
+    def record(q, k, v, **kw):
+        i = next(calls)
+        if i in layers:
+            seen[i] = (q.clone(), k.clone(), v.clone(), kw)
+        return kernel(q, k, v, **kw)
+
+    attention.flash_attention_padded = record
+    try:
+        yield seen
+    finally:
+        attention.flash_attention_padded = kernel
+
 
 @contextlib.contextmanager
 def plain_attention():
@@ -467,18 +521,24 @@ def phase_serve() -> int:
     torch.cuda.reset_peak_memory_stats()
     cgra_sim.launches = 0
     flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
     batches, serve_s = serve_requests(spec, params, queue)
     launches = flash_attention.launches
+    tc_launches = flash_attention.tensor_core_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_batches = len(batches)
     log(f"  {SERVE_ARCH}: {spec.param_count(params) / 1e6:.1f} M params, "
         f"{SERVE_REQUESTS} requests in {n_batches} batches of {SERVE_BATCH}, "
         f"prompt {SERVE_PROMPT}, {SERVE_GEN} generated tokens each")
-    log(f"  flash_attention launches on the serving path: {launches}; "
-        f"cgra_sim launches there: {cgra_sim.launches}")
+    log(f"  flash_attention launches on the serving path: {launches}, "
+        f"{tc_launches} of them the tensor-core kernel; cgra_sim launches "
+        f"there: {cgra_sim.launches}")
     check(launches >= cfg.num_layers * n_batches,
           f"the serving path launched flash_attention {launches} times, "
           f"not >= {cfg.num_layers} per batch")
+    check(tc_launches >= cfg.num_layers * n_batches,
+          f"the bf16 serving path launched the tensor-core kernel {tc_launches} "
+          f"times, not >= {cfg.num_layers} per batch")
     for toks in batches:
         check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"served tokens {toks.shape}")
         check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
@@ -489,6 +549,25 @@ def phase_serve() -> int:
         f"decode {decode_ms:.2f} ms per step; peak device memory {peak_gib:.2f} GiB")
 
     profile_serve(spec, params, np.stack(queue[:SERVE_BATCH]))
+
+    # the kernel on the activations the bf16 prefill really gives it
+    layers = (0, cfg.num_layers - 1)
+    with captured_attention(layers) as seen:
+        spec.prefill(params, torch.as_tensor(np.stack(queue[:SERVE_BATCH]), device="cuda"),
+                     SERVE_CACHE_LEN)
+    check(sorted(seen) == list(layers), f"captured layers {sorted(seen)}, not {layers}")
+    for layer, (q, k, v, kw) in sorted(seen.items()):
+        got = flash_attention_padded(q, k, v, **kw)
+        want = flash_attention_torch(q, k, v, causal=True, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+              f"layer {layer} prefill activations: kernel != plain version "
+              f"(max |d| {err:.3g}, tol 2e-2)")
+        log(f"  ok  layer {layer} bf16 prefill q/k/v {list(q.shape)}/{list(k.shape)}: "
+            f"max |kernel - plain| {err:.3g} (tol 2e-2, |q| max "
+            f"{float(q.float().abs().max()):.3g})")
+    del seen
 
     # bf16: the same batch through the plain attention version
     with plain_attention():
@@ -538,17 +617,37 @@ def flash_bound(shape, itemsize: int) -> tuple[float, str]:
 
 
 def phase_flash_timing() -> dict:
+    """The kernel at the serve shape in turns with
+    ``scaled_dot_product_attention`` (kernel, sdpa, kernel, sdpa), then its
+    plain version and the CUDA-core kernel on the same shape in f32."""
     q, k, v = qkv(SERVE_SHAPE, torch.bfloat16, seed=1)
-    ms = time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS)
+    kernel_ms, library_ms = [], []
+    for _ in range(2):
+        kernel_ms.append(time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS,
+                                 FLASH_INNER))
+        library_ms.append(time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), TIMED_RUNS, FLASH_INNER))
+    ms = statistics.median(kernel_ms)
+    lib_ms = statistics.median(library_ms)
+    # one launch between the events, the host's enqueue gap included
+    single_ms = time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS)
     plain_ms = time_ms(lambda: flash_attention_torch(q, k, v), 3)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), TIMED_RUNS)
     bound_ms, bound_by = flash_bound(SERVE_SHAPE, q.element_size())
-    log(f"  serve shape {list(SERVE_SHAPE)} bf16 causal: kernel {ms:.4f} ms "
-        f"(median of {TIMED_RUNS}), plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    b, hq, hkv, s_len, d = SERVE_SHAPE
+    flops = 4 * b * hq * d * s_len * (s_len + 1) // 2
+    log(f"  serve shape {list(SERVE_SHAPE)} bf16 causal, tensor-core kernel: "
+        f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms in turns with "
+        f"scaled_dot_product_attention {', '.join(f'{t:.4f}' for t in library_ms)} ms "
+        f"(medians of {TIMED_RUNS} x {FLASH_INNER} back to back); plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms "
+        f"by {bound_by}, {bound_ms / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s; "
+        f"one launch alone between the events {single_ms:.4f} ms")
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = time_ms(lambda: flash_attention(q32, k32, v32), TIMED_RUNS, FLASH_INNER)
+    log(f"  the same shape in f32, CUDA-core kernel: {f32_ms:.4f} ms (median of "
+        f"{TIMED_RUNS} x {FLASH_INNER}; its operations over the f32 CUDA-core "
+        f"peak {flops / F32_OPS_PER_S * 1e3:.4f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -581,6 +680,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     cgra_sim.launches = 0
     flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
     runs = drive_main_path(suite)
     launches = cgra_sim.launches
     log(f"  cgra_sim launches on the main path: {launches}; peak device memory "

@@ -3,9 +3,10 @@
 Each source under ``kernels/csrc/`` exposes a plain C interface (no PyTorch
 headers), so ``nvcc`` turns it into a shared library in seconds. The library
 goes into ``build/`` at the root of the checkout, named by a digest of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. Targets Hopper only (``sm_90a``). A failed build raises; nothing
-falls back to another implementation.
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Targets Hopper
+only (``sm_90a``). A failed build raises; nothing falls back to another
+implementation.
 """
 
 from __future__ import annotations
@@ -62,15 +63,26 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str, *, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/kernels`` unless already
-    built; returns the library's path."""
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built to: named by a digest of the
+    source, every header in ``csrc/`` (sources include them by name) and
+    the flags. Needs no compiler."""
     src = _CSRC / f"{name}.cu"
     flags = KERNEL_FLAGS.get(name, NVCC_FLAGS)
-    digest = hashlib.sha1(
-        src.read_bytes() + "\0".join(flags).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, *, verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``build/kernels`` unless already
+    built; returns the library's path. ``verbose`` prints ptxas's report
+    (registers, shared memory, spills) of each kernel."""
+    src = _CSRC / f"{name}.cu"
+    flags = KERNEL_FLAGS.get(name, NVCC_FLAGS)
+    lib = library_path(name)
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,53 +1,92 @@
-// Forward flash attention (online softmax), one thread block per
-// (batch * q-head, 64-row query block).
+// Forward flash attention (online softmax) for the GPU: two hand-written
+// kernels behind one C entry point.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
-// (launched by flash_attention). It computes the same function:
+// (launched by flash_attention). Both kernels compute the same function:
 //
 //   out[b, h, i] = sum_j p_ij v[b, h / group, j],  p = softmax_j(mask(cap(s)))
 //   s_ij = (q[b, h, i] . k[b, h / group, j]) * sm_scale
 //
-// with an optional logit softcap cap * tanh(s / cap), a causal mask (j <= i),
-// a window mask (i - j < window), GQA (kv head = h / group), f32 running
-// max, denominator and accumulator, fully masked rows giving 0, and the
-// output cast to q's dtype. q, k, v and out are contiguous [B, H, S, D] in
-// f32, bf16 or fp16; D is a multiple of 32 up to 256.
-//
-// It is not carried over block by block. On the TPU the kv axis is a
-// sequential grid dimension and the running statistics live in VMEM scratch
-// between grid steps; here the kv loop runs inside the block and the
-// statistics live in registers:
-//
-//   * 8 warps, 8 query rows each. The block's Q tile is converted to f32 in
-//     shared memory once; each 64-key K/V tile is staged in shared memory in
-//     the input type (half the bytes of f32 for bf16, so two blocks fit on
-//     an SM at D = 128).
-//   * Scores: lane l of a warp owns keys l and l + 32 of the tile for the
-//     warp's 8 rows (16 scores per thread), reading 4 values of d at a time:
-//     Q as a broadcast float4, K rows padded by 4 elements so the lanes'
-//     4-wide loads fall in distinct banks.
-//   * Row max and sum are warp shuffles. The probabilities go to a per-warp
-//     strip of shared memory, and lane l accumulates output columns
-//     l + 32c (c < D / 32) of the warp's 8 rows: acc[8][D / 32] in registers.
-//   * kv tiles that the causal or window mask empties for every row of the
-//     block are skipped, and query blocks are launched heaviest first.
+// with f32 scores, an optional logit softcap cap * tanh(s / cap), then -1e30
+// where masked (causal: j <= i; window: i - j < window), GQA (kv head =
+// h / group), f32 running max, denominator and accumulator with the
+// reference's guard m_new > -1e30 / 2, fully masked rows giving 0, and the
+// output cast to q's dtype. q, k, v and out are contiguous [B, H, S, D].
 //
 // What bounds it on an H100: the two products are 4 * S^2 * D FLOPs per
 // (batch, q-head), halved by the causal mask (6.9e10 at B 4, Hq 16, Hkv 8,
-// S 2048, D 128), against 50 MB of q, k, v and out in bf16 there:
-// operations, at ~1400 FLOP/byte against the card's ~300 FLOP/byte ridge.
-// This kernel does them with scalar f32 FMAs on the CUDA cores (67 TFLOP/s
-// peak), not on the tensor cores (989 TFLOP/s bf16), and without
-// overlapping tile loads with compute: a simple, correct first version.
-// wgmma, TMA and a pipelined ring are later work.
+// S 2048, D 128), against 50 MB of q, k, v and out in bf16: operations, at
+// ~1400 FLOP/byte against the card's ~300 FLOP/byte ridge, so the products
+// belong on the bf16 tensor cores (989 TFLOP/s dense).
+//
+// 1. Tensor-core kernel (flash_fwd_tc): bf16 and f16 at D 64, 128, 192, 256.
+//    * One block per (batch * q-head, 128 query rows): two consumer
+//      warpgroups of 64 rows each and a producer warpgroup whose first
+//      thread issues every load. The producer is a whole warpgroup so that
+//      setmaxnreg can hand its registers to the consumers (24 a thread
+//      there, 240 in the consumers): the accumulators of O, S and P stay in
+//      registers without spills at every D. Query blocks run heaviest
+//      first; kv tiles that the causal or window mask empties for the whole
+//      block are never loaded, tiles empty for one warpgroup's rows are
+//      skipped by it, and only tiles that cross the diagonal, the window
+//      edge or S apply the mask per element.
+//    * The producer loads the Q tile once and the K and V tiles
+//      (128 keys for D <= 128, 64 for D >= 192) through two 2-stage rings
+//      with TMA, each ring slot guarded by a full and an empty mbarrier. The
+//      tensor maps are 3-D [B*H, S, D], so rows past S arrive as TMA's zero
+//      fill instead of the next head's rows. Boxes are 64 columns (128
+//      bytes) wide with the 128-byte swizzle; a D-128 row is two boxes.
+//      Shared memory: Q + 2 K + 2 V tiles, 192 KB at D 256, 160 KB at D 128.
+//    * S = Q K^T: wgmma m64nBKVk16, Q and K both K-major from shared memory,
+//      f32 accumulators. Products of two bf16 (or f16) values are exact in
+//      f32, so this differs from the reference only in summation order.
+//    * The softmax runs in registers on the accumulator fragment: a thread
+//      holds two rows, each row is spread over 4 threads, so a row max or
+//      sum is two shuffles. Scores are kept in base 2 (s * scale * log2 e)
+//      and exponentiated with exp2f: one MUFU instruction instead of expf's
+//      longer sequence, and its few-ulp difference from exp(s - m) is far
+//      below the bf16/f16 rounding of p that follows. The row sum l adds the
+//      f32 probabilities.
+//    * O += P V: wgmma m64nDk16 with A = P from registers. The f32 score
+//      accumulator of two n8 column chunks is, pair by pair, the 16-bit A
+//      fragment of one k16 step, so P never goes through shared memory. V
+//      is read MN-major (D contiguous, the transpose-B bit set), as stored.
+//    * P is rounded to bf16 (f16) before P V: the one numerical departure
+//      from the reference, which keeps p in f32. It moves the output by
+//      about 2^-9 relative, well inside the 2e-2 tolerance of 16-bit inputs
+//      (tests/test_torch_flash.py holds a rounded copy of the algorithm
+//      against the JAX reference).
+//    * Within a warpgroup, tile i's S = Q K^T and tile i-1's O += P V are
+//      issued together, and the softmax of tile i runs while P V is still
+//      on the tensor cores; the two warpgroups also interleave freely.
+//    * Epilogue: divide by l (0 -> 1), convert, store from registers.
+//
+// 2. CUDA-core kernel (flash_fwd): f32 at every D, and bf16/f16 at D 32,
+//    96, 160 and 224. f32 stays off the tensor cores because TF32 keeps
+//    about 3 decimal digits and could not hold the f32 tolerance (2e-5) or
+//    the f32 serving gate; D values that are not a multiple of a 64-column
+//    swizzle box stay too (no config of the zoo uses them). One block per
+//    (batch * q-head, 64 query rows), 8 warps of 8 rows, Q in f32 and K/V
+//    tiles in the input type in shared memory, both products as scalar f32
+//    FMAs, statistics and accumulator in registers.
+//
+// Which kernel runs depends only on dtype and D (flash_attention_uses_
+// tensor_cores); a failed launch or tensor-map encoding is returned as an
+// error code, never replaced by the other kernel.
 //
 // Plain C interface, loaded with ctypes (kernels/_build.py): no PyTorch
-// headers, so the build takes seconds.
+// headers, so the build takes seconds. The tensor maps are encoded per
+// launch with cuTensorMapEncodeTiled reached through
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -328,9 +367,472 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+namespace tc {
+
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_wait;
+using hopper::smem_addr;
+using hopper::sw128_desc;
+
+constexpr int BQ = 128;                   // query rows per block
+constexpr int WG_ROWS = 64;               // query rows per consumer warpgroup
+constexpr int CONSUMERS = BQ / WG_ROWS;   // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+// Registers a thread after setmaxnreg: the block starts with 168 a thread
+// (65536 over 384 threads); the producer warpgroup gives all but 24 back and
+// the consumers take 240 (128 x 24 + 256 x 240 = 384 x 168).
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 2;                 // slots of the K ring and of the V ring
+constexpr int PANEL_COLS = 64;            // 16-bit columns of one 128-byte box
+constexpr float NEG_INF = -1e30f;         // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tiles {
+  static_assert(D % PANEL_COLS == 0 && D <= 256, "D is 64, 128, 192 or 256");
+  static constexpr int BKV = D <= 128 ? 128 : 64;    // keys per kv tile
+  static constexpr int PANELS = D / PANEL_COLS;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;       // one K or one V tile
+  // + 1024: the dynamic buffer is aligned up to the swizzle period
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+};
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One tile's scores of a thread's two rows -> probabilities, in place:
+// scale (then softcap) into base 2, mask (MASK: the tile crosses the
+// diagonal, the window edge or S), fold into the running max m, and add the
+// f32 probabilities to l. Returns each row's rescale factor for O.
+template <int BKV, bool CAP, bool MASK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BKV / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float scale, float cap, int kv0, int row0, int col, int S, int causal,
+    int has_window, int window) {
+  const float scale_log2 = scale * LOG2E;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int idx = 0; idx < BKV / 2; ++idx) {
+    const int r = (idx >> 1) & 1;
+    float x = CAP ? cap * tanhf(s[idx] * scale / cap) * LOG2E : s[idx] * scale_log2;
+    if (MASK) {
+      const int key = kv0 + 8 * (idx >> 2) + col + (idx & 1);
+      const int row = row0 + 8 * r;
+      bool ok = key < S;
+      if (causal) ok = ok && key <= row;
+      if (has_window) ok = ok && row - key < window;
+      x = ok ? x : NEG_INF;
+    }
+    s[idx] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+  bool safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    // a row masked so far: exp(NEG_INF - NEG_INF) would be 1
+    safe[r] = m_new > NEG_INF / 2;
+    alpha[r] = safe[r] ? exp2f(m[r] - m_new) : 0.f;
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int idx = 0; idx < BKV / 2; ++idx) {
+    const int r = (idx >> 1) & 1;
+    const float p = safe[r] ? exp2f(s[idx] - m[r]) : 0.f;
+    s[idx] = p;
+    sum[r] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(sum[r]);
+}
+
+// One consumer warpgroup's 64 query rows: the loop over the kv tiles, then
+// the epilogue. Fragment layout of a wgmma m64nN f32 accumulator, thread t
+// of the warpgroup (warp w = t / 32, lane l): register 4 j + e holds row
+// 16 w + l / 4 + 8 (e / 2) and column 8 j + 2 (l % 4) + (e % 2).
+//
+// The tiles the masks leave non-empty for these rows form one run; in it,
+// tile i's S = Q K^T and tile i-1's O += P V are issued together, and the
+// softmax of tile i runs while P V is still on the tensor cores. Tiles
+// outside the run are only waited for and released.
+template <typename T, int D>
+__device__ __forceinline__ void consume(
+    unsigned char* sQ, unsigned char* sK, unsigned char* sV, uint64_t* q_full,
+    uint64_t* k_full, uint64_t* k_empty, uint64_t* v_full, uint64_t* v_empty,
+    T* __restrict__ o, int q0, int bh, int kv_lo, int n_tiles, int warp, int S,
+    float scale, int causal, int has_window, int window, int has_cap, float cap) {
+  using C = Tiles<D>;
+  constexpr int BKV = C::BKV;
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int qw0 = q0 + wg * WG_ROWS;                  // the warpgroup's rows
+  const int row0 = qw0 + 16 * (warp % 4) + lane / 4;  // this thread's rows:
+  const int row1 = row0 + 8;                          //   row0 and row0 + 8
+  const int col = 2 * (lane % 4);                     // + 8 j + (e % 2)
+
+  float acc[D / 2];
+  float s[BKV / 2];
+  uint32_t pa[BKV / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};    // running max, base 2
+  float l[2] = {0.f, 0.f};            // running denominator
+  float alpha[2];
+
+  const uint32_t q_addr = smem_addr(sQ) + wg * WG_ROWS * 128;
+  auto stage = [](int i) { return i % STAGES; };
+  auto phase = [](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
+  auto kv0_of = [&](int i) { return (kv_lo + i) * BKV; };
+  // a tile the masks empty for all 64 rows
+  auto idle = [&](int i) {
+    const int kv0 = kv0_of(i);
+    return (causal && kv0 > qw0 + WG_ROWS - 1) ||
+           (has_window && qw0 - (kv0 + BKV - 1) >= window);
+  };
+  auto skip = [&](int i) {
+    mbar_wait(&k_full[stage(i)], phase(i));
+    mbar_arrive(&k_empty[stage(i)]);
+    mbar_wait(&v_full[stage(i)], phase(i));
+    mbar_arrive(&v_empty[stage(i)]);
+  };
+  // S = Q K_i^T, issued (not waited for)
+  auto issue_qk = [&](int i) {
+    mbar_wait(&k_full[stage(i)], phase(i));
+    const uint32_t k_addr = smem_addr(sK + stage(i) * C::KV_BYTES);
+    fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes
+      const uint64_t da = sw128_desc(q_addr + (kk / 4) * BQ * 128 + off, 16, 1024);
+      const uint64_t db = sw128_desc(k_addr + (kk / 4) * BKV * 128 + off, 16, 1024);
+      hopper::wgmma_ss<T, BKV>(s, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P V_i, issued (not waited for)
+  auto issue_pv = [&](int i) {
+    mbar_wait(&v_full[stage(i)], phase(i));
+    const uint32_t v_addr = smem_addr(sV + stage(i) * C::KV_BYTES);
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      // 16 keys = 16 rows of 128 B; the next 64 columns are a panel away
+      const uint64_t db = sw128_desc(v_addr + kk * 16 * 128, BKV * 128, 1024);
+      hopper::wgmma_rs<T, D>(acc, pa[kk], db);
+    }
+    hopper::wgmma_commit();
+  };
+  auto softmax = [&](int i) {
+    const int kv0 = kv0_of(i);
+    const bool edge = kv0 + BKV > S || (causal && kv0 + BKV - 1 > qw0) ||
+                      (has_window && qw0 + WG_ROWS - 1 - kv0 >= window);
+    if (edge) {
+      if (has_cap) {
+        online_softmax<BKV, true, true>(s, m, l, alpha, scale, cap, kv0, row0, col, S,
+                                        causal, has_window, window);
+      } else {
+        online_softmax<BKV, false, true>(s, m, l, alpha, scale, cap, kv0, row0, col, S,
+                                         causal, has_window, window);
+      }
+    } else if (has_cap) {
+      online_softmax<BKV, true, false>(s, m, l, alpha, scale, cap, kv0, row0, col, S,
+                                       causal, has_window, window);
+    } else {
+      online_softmax<BKV, false, false>(s, m, l, alpha, scale, cap, kv0, row0, col, S,
+                                        causal, has_window, window);
+    }
+  };
+  // rescale O, then P to 16 bits: accumulator registers 8 kk .. 8 kk + 7
+  // are the A fragment of k step kk, two at a time
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int idx = 0; idx < D / 2; ++idx) acc[idx] *= alpha[(idx >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        pa[kk][h] = pack2<T>(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
+      }
+    }
+  };
+
+  int t0 = 0, t1 = n_tiles;
+  while (t0 < t1 && idle(t0)) ++t0;
+  while (t1 > t0 && idle(t1 - 1)) --t1;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < t0; ++i) skip(i);
+  if (t0 < t1) {
+    issue_qk(t0);
+    hopper::wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(&k_empty[stage(t0)]);
+    softmax(t0);
+    rescale_and_pack();
+    for (int i = t0 + 1; i < t1; ++i) {
+      issue_qk(i);
+      issue_pv(i - 1);
+      hopper::wgmma_wait<1>();          // S of tile i is in
+      fence_regs(s);
+      mbar_arrive(&k_empty[stage(i)]);
+      softmax(i);                       // beside P V of tile i - 1
+      hopper::wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+      mbar_arrive(&v_empty[stage(i - 1)]);
+      rescale_and_pack();
+    }
+    issue_pv(t1 - 1);
+    hopper::wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+    mbar_arrive(&v_empty[stage(t1 - 1)]);
+  }
+  for (int i = t1; i < n_tiles; ++i) skip(i);
+
+  // out = acc / l (0 -> 1), rows past S dropped
+  const float inv0 = 1.f / (l[0] == 0.f ? 1.f : l[0]);
+  const float inv1 = 1.f / (l[1] == 0.f ? 1.f : l[1]);
+  T* out0 = o + (static_cast<size_t>(bh) * S + row0) * D + col;
+  T* out1 = o + (static_cast<size_t>(bh) * S + row1) * D + col;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < S) {
+      *reinterpret_cast<uint32_t*>(out0 + 8 * j) =
+          pack2<T>(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    }
+    if (row1 < S) {
+      *reinterpret_cast<uint32_t*>(out1 + 8 * j) =
+          pack2<T>(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tmap_q,
+             const __grid_constant__ CUtensorMap tmap_k,
+             const __grid_constant__ CUtensorMap tmap_v, T* __restrict__ o,
+             int S, int Hq, int group, float scale, int causal,
+             int has_window, int window, int has_cap, float cap) {
+  using C = Tiles<D>;
+  constexpr int BKV = C::BKV;
+
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[STAGES], k_empty[STAGES];
+  __shared__ __align__(8) uint64_t v_full[STAGES], v_empty[STAGES];
+
+  // Q: PANELS panels of BQ rows x 128 B; K and V: STAGES slots of PANELS
+  // panels of BKV rows x 128 B. Every panel starts on a 1024-byte boundary.
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + C::Q_BYTES;
+  unsigned char* sV = sK + STAGES * C::KV_BYTES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
+  const int bh = blockIdx.y;                          // b * Hq + h
+  const int hkv = Hq / group;
+  const int kv_head = (bh / Hq) * hkv + (bh % Hq) / group;
+
+  // kv tiles [kv_lo, kv_lo + n_tiles) that hold a key some row may see
+  const int q_last = min(q0 + BQ, S) - 1;
+  int kv_lo = 0;
+  int kv_hi = (S + BKV - 1) / BKV;
+  if (causal) kv_hi = q_last / BKV + 1;
+  if (has_window && q0 - window + 1 > 0) kv_lo = (q0 - window + 1) / BKV;
+  const int n_tiles = max(kv_hi - kv_lo, 0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], CONSUMERS * 128);
+      hopper::mbar_init(&v_empty[s], CONSUMERS * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMERS * 4) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_arrive_expect_tx(&q_full, C::Q_BYTES);
+      for (int p = 0; p < C::PANELS; ++p) {
+        hopper::tma_load_3d(sQ + p * BQ * 128, &tmap_q, &q_full, p * PANEL_COLS, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const uint32_t phase = (i / STAGES) & 1;
+        const int kv0 = (kv_lo + i) * BKV;
+        // the first pass over the ring finds every slot free
+        mbar_wait(&k_empty[st], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&k_full[st], C::KV_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          hopper::tma_load_3d(sK + st * C::KV_BYTES + p * BKV * 128, &tmap_k,
+                              &k_full[st], p * PANEL_COLS, kv0, kv_head);
+        }
+        mbar_wait(&v_empty[st], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&v_full[st], C::KV_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          hopper::tma_load_3d(sV + st * C::KV_BYTES + p * BKV * 128, &tmap_v,
+                              &v_full[st], p * PANEL_COLS, kv0, kv_head);
+        }
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    consume<T, D>(sQ, sK, sV, &q_full, k_full, k_empty, v_full, v_empty, o, q0, bh,
+                  kv_lo, n_tiles, warp, S, scale, causal, has_window, window,
+                  has_cap, cap);
+  }
+}
+
+// ----------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the C interface beyond cudaError_t's range.
+constexpr int ERR_NO_ENCODER = 100000;      // driver has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = 100001;          // + CUresult of a refused encoding
+
+int encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return ERR_NO_ENCODER;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// [heads, S, D] of 16-bit values, boxes of 64 columns x `rows` rows x 1
+// head, 128-byte swizzle, zeros outside.
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+             CUtensorMapDataType type, int heads, int S, int D, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {PANEL_COLS, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
+}
+
+template <typename T> constexpr CUtensorMapDataType map_type();
+template <> constexpr CUtensorMapDataType map_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <> constexpr CUtensorMapDataType map_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+template <typename T, int D>
+int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hq, int Hkv, int S, float scale, int causal, int has_window,
+                 int window, int has_cap, float cap, cudaStream_t stream) {
+  using C = Tiles<D>;
+  EncodeTiled encode;
+  int err = encoder(&encode);
+  if (err != 0) return err;
+  CUtensorMap tmap_q, tmap_k, tmap_v;
+  if ((err = make_map(encode, &tmap_q, q, map_type<T>(), B * Hq, S, D, BQ)) != 0 ||
+      (err = make_map(encode, &tmap_k, k, map_type<T>(), B * Hkv, S, D, C::BKV)) != 0 ||
+      (err = make_map(encode, &tmap_v, v, map_type<T>(), B * Hkv, S, D, C::BKV)) != 0) {
+    return err;
+  }
+  auto kernel = flash_fwd_tc<T, D>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid((S + BQ - 1) / BQ, B * Hq);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(
+      tmap_q, tmap_k, tmap_v, static_cast<T*>(o), S, Hq, Hq / Hkv, scale, causal,
+      has_window, window, has_cap, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
+             int Hq, int Hkv, int S, float scale, int causal, int has_window,
+             int window, int has_cap, float cap, cudaStream_t stream) {
+#define FLASH_TC_CASE(D_)                                                     \
+  case D_:                                                                    \
+    return launch_typed<T, D_>(q, k, v, o, B, Hq, Hkv, S, scale, causal,      \
+                               has_window, window, has_cap, cap, stream);
+  switch (D) {
+    FLASH_TC_CASE(64) FLASH_TC_CASE(128) FLASH_TC_CASE(192) FLASH_TC_CASE(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLASH_TC_CASE
+}
+
+}  // namespace tc
+
 extern "C" {
 
-// Launches the kernel on `stream` and returns a cudaError_t (0 = ok).
+// 1 if flash_attention_launch runs the tensor-core kernel for this dtype
+// code and head dim, 0 if the CUDA-core kernel.
+int flash_attention_uses_tensor_cores(int dtype, int D) {
+  return (dtype == BF16 || dtype == F16) && D % tc::PANEL_COLS == 0 && D >= 64 &&
+         D <= 256;
+}
+
+// Launches the kernel on `stream` and returns 0, a cudaError_t, or a code
+// of the tensor-map encoding (flash_attention_error_string names each).
 // q, out: [B, Hq, S, D]; k, v: [B, Hkv, S, D]; all contiguous, of the
 // type `dtype` (0 f32, 1 bf16, 2 f16) and aligned to 16 bytes. Hq is a
 // multiple of Hkv, D a multiple of 32 up to 256, B * Hq <= 65535.
@@ -344,6 +846,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flash_attention_uses_tensor_cores(dtype, D)) {
+    if (dtype == BF16) {
+      return tc::launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale,
+                                         causal, has_window, window, has_cap, cap, st);
+    }
+    return tc::launch_d<__half>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale, causal,
+                                has_window, window, has_cap, cap, st);
+  }
   cudaError_t err;
   switch (dtype) {
     case F32:
@@ -365,6 +875,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_error_string(int code) {
+  static char buf[96];
+  if (code == tc::ERR_NO_ENCODER) {
+    return "the driver has no cuTensorMapEncodeTiled";
+  }
+  if (code >= tc::ERR_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
+             code - tc::ERR_ENCODE);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

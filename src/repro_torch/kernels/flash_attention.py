@@ -2,11 +2,15 @@
 
 The port of the JAX package's ``kernels/flash_attention.py::_flash_kernel``:
 
-* :func:`flash_attention` is the wrapper of the hand-written CUDA kernel
-  ``csrc/flash_attention.cu``. It keeps the reference's signature (less
-  ``interpret``) and validation. On a CUDA tensor it launches the kernel or
-  raises; on a CPU tensor it runs :func:`flash_attention_torch`.
-  ``flash_attention.launches`` counts the kernel's launches.
+* :func:`flash_attention` is the wrapper of the hand-written CUDA kernels
+  in ``csrc/flash_attention.cu``: a tensor-core kernel (wgmma, TMA) for
+  bf16/f16 at D 64, 128, 192 and 256, and a CUDA-core kernel for f32 and
+  the other head dims; the source's note says why. It keeps the
+  reference's signature (less ``interpret``) and validation. On a CUDA
+  tensor it launches a kernel or raises; on a CPU tensor it runs
+  :func:`flash_attention_torch`. ``flash_attention.launches`` counts every
+  kernel launch, ``flash_attention.tensor_core_launches`` those of the
+  tensor-core kernel.
 * :func:`flash_attention_torch` is the plain PyTorch version of the same
   function, blocked the same way as the reference kernel: an online softmax
   over kv blocks with f32 running max, denominator and accumulator,
@@ -46,6 +50,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_uses_tensor_cores.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_uses_tensor_cores.restype = ctypes.c_int
     return lib
 
 
@@ -101,9 +107,11 @@ def flash_attention(
 
     Raises ``ValueError`` if Hq is not a multiple of Hkv or S is not
     divisible by ``min(block_q, S)`` and ``min(block_kv, S)``, as the
-    reference does. A CUDA tensor launches the CUDA kernel on the current
+    reference does. A CUDA tensor launches a CUDA kernel on the current
     stream (no synchronisation), whose own tiling does not depend on the
-    blocks; a CPU tensor runs :func:`flash_attention_torch` with them.
+    blocks: the tensor-core kernel for bf16/f16 at D 64, 128, 192 or 256,
+    else the CUDA-core kernel. A CPU tensor runs
+    :func:`flash_attention_torch` with the blocks.
     """
     b, hq, s_len, d = q.shape
     bq, bkv = _blocks(s_len, hq, k.shape[1], block_q, block_kv)
@@ -136,10 +144,13 @@ def flash_attention(
             f"{lib.flash_attention_error_string(err).decode()}"
         )
     flash_attention.launches += 1
+    if lib.flash_attention_uses_tensor_cores(_DTYPES[q.dtype], d):
+        flash_attention.tensor_core_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0
 
 
 def flash_attention_torch(

@@ -79,34 +79,64 @@ def _qkv(b, hq, hkv, s, d, dtype, device, seed=0):
             for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
 
+def _tensor_core(dtype, d) -> bool:
+    """Whether the wrapper takes the tensor-core kernel (else the CUDA-core one)."""
+    return dtype != torch.float32 and d in (64, 128, 192, 256)
+
+
 # f32 within 2e-5 and bf16/f16 within 2e-2: the JAX package's own tolerances
 @pytest.mark.parametrize("case", [
+    # the CUDA-core kernel: f32 at every D, bf16/f16 at D not a multiple of 64
     ((2, 4, 2, 256, 32), torch.float32, {}),
     ((2, 4, 2, 256, 96), torch.float32, {}),
     ((1, 8, 1, 512, 128), torch.float32, {}),
     ((1, 2, 2, 128, 64), torch.float32, {"causal": False}),
     ((1, 2, 2, 256, 64), torch.float32, {"window": 64, "softcap": 20.0}),
     ((2, 8, 4, 512, 256), torch.float32, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 2, 256, 96), torch.bfloat16, {}),
+    # the tensor-core kernel at every head dim it takes, in bf16 and f16
     ((1, 4, 2, 256, 64), torch.bfloat16, {}),
+    ((1, 4, 2, 256, 64), torch.float16, {}),
+    ((1, 4, 2, 256, 128), torch.bfloat16, {}),
     ((1, 4, 2, 256, 128), torch.float16, {"window": 1000}),
+    ((1, 4, 2, 256, 192), torch.bfloat16, {}),
+    ((1, 4, 2, 256, 192), torch.float16, {"window": 100}),
+    ((2, 8, 4, 512, 256), torch.bfloat16, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 2, 384, 256), torch.float16, {}),
+    # ... and its options: S below one tile (TMA's zero fill), window,
+    # softcap, non-causal, GQA 8/1, all rows masked
     ((2, 4, 2, 48, 64), torch.bfloat16, {}),
+    ((2, 4, 2, 48, 128), torch.float16, {"causal": False}),
+    ((1, 2, 2, 512, 128), torch.bfloat16, {"window": 64}),
+    ((1, 2, 1, 256, 128), torch.bfloat16, {"softcap": 20.0}),
+    ((1, 2, 2, 256, 128), torch.bfloat16, {"causal": False}),
+    ((1, 2, 2, 256, 64), torch.bfloat16, {"causal": False, "window": 64}),
+    ((1, 8, 1, 512, 128), torch.bfloat16, {}),
+    ((1, 2, 2, 256, 128), torch.bfloat16, {"window": 0}),
 ])
 def test_flash_kernel_matches_plain(cuda, case):
     shape, dtype, kw = case
     q, k, v = _qkv(*shape, dtype, cuda)
     before = flash_attention.launches
+    tc_before = flash_attention.tensor_core_launches
     got = flash_attention(q, k, v, **kw)
     assert flash_attention.launches == before + 1
+    assert (flash_attention.tensor_core_launches - tc_before
+            == int(_tensor_core(dtype, shape[-1])))
     torch.cuda.synchronize()
     want = flash_attention_torch(q, k, v, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if kw.get("window") == 0:                  # q - k < 0 never holds causally
+        assert torch.equal(got, torch.zeros_like(got))
 
 
 def test_flash_padded_path_on_the_card(cuda):
     q, k, v = _qkv(1, 4, 2, 1000, 128, torch.bfloat16, cuda)
+    tc_before = flash_attention.tensor_core_launches
     got = flash_attention_padded(q, k, v, window=256, softcap=50.0)
+    assert flash_attention.tensor_core_launches == tc_before + 1
     want = flash_attention_torch(q, k, v, window=256, softcap=50.0)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 

@@ -5,8 +5,11 @@ on CPU tensors) and its direct-softmax oracle (``reference_attention``) are
 held against the JAX ``reference_attention`` on the whole sweep of
 tests/test_kernels_flash.py, with the same inputs (made from the same numpy
 seed) and the same tolerances: 2e-5 in f32, 2e-2 in bf16. Three small cases
-also hold it against the Pallas kernel in interpret mode. The CUDA kernel
-itself runs only on a GPU (tests/test_torch_cuda.py, chip_smoke.py).
+also hold it against the Pallas kernel in interpret mode. The CUDA kernels
+themselves run only on a GPU (tests/test_torch_cuda.py, chip_smoke.py); the
+numerical design of the tensor-core kernel, which rounds the probabilities
+to 16 bits before P V, is held against the JAX reference here through a
+test-local copy of its algorithm.
 """
 
 import jax
@@ -19,7 +22,7 @@ from repro.kernels.flash_attention import flash_attention as jflash_attention
 from repro.kernels.ref import reference_attention as _jax_reference_attention
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_padded, flash_attention_torch,
+    NEG_INF, flash_attention, flash_attention_padded, flash_attention_torch,
 )
 from repro_torch.kernels.ref import reference_attention
 
@@ -148,3 +151,72 @@ def test_kernel_request_raises_without_the_toolkit():
         pytest.skip("a GPU or nvcc is present; this checks the machine without")
     with pytest.raises(_build.KernelBuildError, match="nvcc"):
         _build.load("flash_attention")
+
+
+# ------------------------------------------------ the tensor-core design
+
+def _tensor_core_algorithm(q, k, v, *, causal=True, window=None, softcap=None):
+    """The tensor-core kernel's arithmetic in plain torch: 128-row query
+    blocks, kv tiles of 128 keys (64 for D >= 192), f32 scores and running
+    statistics, the row sum over f32 probabilities, and P rounded to the
+    input's 16-bit type before P V (the one departure from the reference,
+    which keeps P in f32). Products of 16-bit values are exact in f32, so
+    the two products are f32 matmuls of the rounded operands."""
+    b, hq, s_len, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    bkv = 128 if d <= 128 else 64
+    scale = d ** -0.5
+    qf = q.float().reshape(b, hkv, group, s_len, d)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s_len)
+    out = torch.empty_like(qf)
+    for q0 in range(0, s_len, 128):
+        q1 = min(q0 + 128, s_len)
+        m = torch.full((b, hkv, group, q1 - q0, 1), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, group, q1 - q0, d))
+        for k0 in range(0, s_len, bkv):
+            k1 = min(k0 + bkv, s_len)
+            s = qf[:, :, :, q0:q1] @ kf[:, :, None, k0:k1].transpose(-1, -2) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            qp, kp = pos[q0:q1, None], pos[None, k0:k1]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+            if causal:
+                mask &= kp <= qp
+            if window is not None:
+                mask &= qp - kp < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            safe = m_new > NEG_INF / 2
+            p = torch.where(safe, torch.exp(s - m_new), 0.0)
+            alpha = torch.where(safe, torch.exp(m - m_new), 0.0)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p.to(q.dtype).float() @ vf[:, :, None, k0:k1]
+            m = m_new
+        out[:, :, :, q0:q1] = acc / torch.where(l == 0.0, 1.0, l)
+    return out.reshape(b, hq, s_len, d).to(q.dtype)
+
+
+# the sweep's shapes in bf16 and f16, the gemma2 combination at D 256 and a
+# D 192 case: every head dim the tensor-core kernel takes
+TENSOR_CORE_CASES = (
+    [(shape, dict(opts, dtype=dt)) for shape, opts in SWEEP if "dtype" not in opts
+     for dt in (jnp.bfloat16, jnp.float16)]
+    + [((2, 8, 4, 512, 256), {"window": 128, "cap": 50.0, "dtype": jnp.bfloat16}),
+       ((1, 4, 2, 256, 192), {"dtype": jnp.float16}),
+       ((1, 4, 2, 256, 192), {"window": 100, "dtype": jnp.bfloat16})]
+)
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_CASES, ids=_ids)
+def test_tensor_core_rounding_of_p_stays_within_the_16_bit_tolerance(case):
+    (b, hq, hkv, s, d), opts = case
+    kw = dict(causal=opts.get("causal", True), window=opts.get("window"),
+              softcap=opts.get("cap"))
+    (jq, jk, jv), (q, k, v) = _inputs(b, hq, hkv, s, d, opts["dtype"])
+    want = jreference_attention(jq, jk, jv, **kw)
+    got = _tensor_core_algorithm(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, 2e-2)
