@@ -5,15 +5,18 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU and the CUDA
 toolkit (``nvcc``); it builds the port's CUDA kernels into ``build/`` first.
-It drives the port's two paths through the entry points a user calls — map a
-loop with the port's mapper, lower it and execute it batched through the
+It drives the port's three paths through the entry points a user calls — map
+a loop with the port's mapper, lower it and execute it batched through the
 hand-written ``cgra_sim`` kernel; serve qwen3-0.6b at full width with its
-prefill attention in the hand-written ``flash_attention`` kernel — and fails
-(non-zero exit, no result line) if any phase fails:
+prefill attention in the hand-written ``flash_attention`` kernel; train
+qwen3-0.6b at full width with attention's forward and gradient in the
+hand-written ``flash_attention`` and ``flash_attention_bwd`` kernels — and
+fails (non-zero exit, no result line) if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu`` and
-   ``flash_attention.cu`` with nvcc, one process each, in parallel;
+2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu``,
+   ``flash_attention.cu`` and ``flash_attention_bwd.cu`` with nvcc, one
+   process each, in parallel;
 3. small programs: the cgra_sim kernel's trace equals the plain PyTorch
    version on the card (``torch.equal``) and the numpy oracle, and its store
    streams match the scalar interpreter on lane 0;
@@ -40,7 +43,31 @@ prefill attention in the hand-written ``flash_attention`` kernel — and fails
 8. timing of the flash kernel at the serve shape in turns with
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
    it), beside its bound and its plain version, and of the CUDA-core kernel
-   on the same shape in f32.
+   on the same shape in f32;
+9. the flash backward kernel against its plain version
+   (``flash_attention_backward_torch``, fed the same q, k, v, output,
+   log-sum-exp and d out) and against autograd through
+   ``flash_attention_torch``, on every case of phase 6 (the padded one
+   through autograd of ``flash_attention_padded``) and the training shape,
+   within 2e-5 (f32) / 2e-2 (bf16, f16) of each gradient's max |g|; the
+   forward's log-sum-exp against the plain one; each case checks that the
+   backward kernel ran, and that the autograd Function gives the same
+   gradients;
+10. training path at full width: qwen3-0.6b (bf16, remat) trains 8 steps
+   of batch 4 x 2048 through ``launch.train``'s ``make_state`` /
+   ``make_step`` and ``runtime.run_training`` (AdamW at the CLI's
+   defaults, a fresh checkpoint directory under ``build/``), then 2 steps
+   with gradient compression. No restart, finite losses, the first near
+   ln(vocab), >= 28 forward, tensor-core forward and backward launches per
+   step (counted over this phase alone), and the saved checkpoint restores
+   bit for bit. Reports ms/step, tokens/s, peak memory, the save's time and
+   a profile of one step. Then one f32 step at batch 1 x 2048 through the
+   kernels against the same step with the plain attention versions: loss
+   within 1e-5 (of max(1, |loss|)), each gradient leaf within 1e-3 of its
+   max |g|;
+11. timing of the backward kernel at the training shape in turns with the
+   backward of ``scaled_dot_product_attention`` (a yardstick only), beside
+   its bound and its plain version.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -51,9 +78,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -72,13 +101,20 @@ from repro_torch.core.dfg import OP_ARITY  # noqa: E402
 from repro_torch.core.simulate import interpret_dfg  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch  # noqa: E402
+from repro_torch.checkpoint import restore  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_padded, flash_attention_torch,
+    flash_attention, flash_attention_backward, flash_attention_backward_torch,
+    flash_attention_lse, flash_attention_padded, flash_attention_torch,
 )
 from repro_torch.kernels.ops import cgra_run, compile_program  # noqa: E402
 from repro_torch.kernels.ref import cgra_sim_reference  # noqa: E402
 from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch.train import make_state, make_step  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.runtime import FaultConfig, run_training  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_paths, unflatten  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 rate
 # outside the tensor cores and the dense bf16 tensor-core rate, at the full
@@ -95,7 +131,7 @@ SAMPLED_LANES = 8
 TIMED_RUNS = 10
 FLASH_INNER = 10      # flash launches per timing (see time_ms)
 
-KERNELS = ("cgra_sim", "flash_attention")
+KERNELS = ("cgra_sim", "flash_attention", "flash_attention_bwd")
 
 SERVE_ARCH = "qwen3-0.6b"
 SERVE_REQUESTS = 8
@@ -110,6 +146,27 @@ SERVE_SHAPE = (SERVE_BATCH, 16, 8, SERVE_PROMPT, 128)
 # which 28 layers may amplify by 10-100x. 1e-4 keeps that margin, while a
 # wrong mask, scale or head mapping moves logits by far more.
 SERVE_F32_TOL = 1e-4
+
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_TIMED_FROM = 2          # ms/step: the median over steps 3..8
+COMPRESSION_STEPS = 2
+# the flash kernels' shape in a training step of qwen3-0.6b
+TRAIN_SHAPE = (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 128)
+# The first loss of random weights: the final rms_norm gives hidden states
+# of unit rms and the tied embedding (std 0.02) logits of std ~0.02*sqrt(d)
+# = 0.64, so lse ~ ln(vocab) + 0.64^2/2 = 12.13 and the loss, with the
+# z-loss (1e-4 lse^2 = 0.015), ~12.15; the band keeps +-0.25 around
+# [ln(vocab), 12.15], more above, where a hidden state that keeps some of
+# its token's embedding would raise the logits' spread.
+FIRST_LOSS_BAND = (11.65, 12.7)
+# f32 full width, kernels vs plain attention: the loss (~12) within 1e-5 of
+# max(1, |loss|), each gradient leaf within 1e-3 of its max |g|
+PARITY_LOSS_TOL = 1e-5
+PARITY_GRAD_TOL = 1e-3
+BWD_INNER = 3         # backward launches per timing at the training shape
 
 
 def log(*parts) -> None:
@@ -651,6 +708,338 @@ def phase_flash_timing() -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ------------------------------------------------------------------ phase 9
+
+def flash_bwd_cases():
+    """Phase 6's cases (the JAX flash sweep in f32 and bf16, D 192/256,
+    f16, S 48, window 0, the ragged S through the padding path), then the
+    training shape."""
+    for label, shape, dtype, opts in flash_cases():
+        if label != "serve shape":
+            yield label, shape, dtype, opts
+    yield "training shape", TRAIN_SHAPE, torch.bfloat16, {}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's max |.| (inf if want is 0 and got is not)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+
+def grads_of(fn, q, k, v, do):
+    """dq, dk, dv of fn(q, k, v) at cotangent do, by autograd."""
+    leaves_ = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves_)
+    return torch.autograd.grad(out, leaves_, do)
+
+
+def phase_flash_bwd() -> float:
+    """Each case: the backward kernel (through its wrapper) against its
+    plain version on the same q, k, v, output, lse and d out, and against
+    autograd through the plain forward; the autograd Function's gradients
+    equal the wrapper's. Returns the largest |kernel - plain| seen."""
+    worst = 0.0
+    for label, shape, dtype, opts in flash_bwd_cases():
+        opts = dict(opts)
+        padded = opts.pop("padded", False)
+        b, hq, hkv, s_len, d = shape
+        q, k, v = qkv(shape, dtype)
+        do = qkv(shape, dtype, seed=1)[0]
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        kw = dict(sm_scale=d ** -0.5, causal=opts.pop("causal", True), **opts)
+        plain_fwd = lambda a, b_, c: flash_attention_torch(a, b_, c, **kw)  # noqa: E731
+        before = flash_attention.backward_launches
+        if padded:
+            # the padding path through autograd: F.pad, the Function, slicing
+            got = grads_of(lambda a, b_, c: flash_attention_padded(
+                a, b_, c, sm_scale=kw["sm_scale"], window=kw.get("window"),
+                softcap=kw.get("softcap")), q, k, v, do)
+            check(flash_attention.backward_launches == before + 1,
+                  f"flash bwd {label}: the padded path launched the backward "
+                  f"{flash_attention.backward_launches - before} times")
+            o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+            lse_err = 0.0
+        else:
+            o, lse = flash_attention_lse(q, k, v, **kw)
+            want_o, want_lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+            live = torch.isfinite(want_lse)
+            check(torch.equal(torch.isfinite(lse), live),
+                  f"flash bwd {label}: lse is -inf on other rows than the plain one's")
+            lse_err = float((lse[live] - want_lse[live]).abs().max()) if live.any() else 0.0
+            check(lse_err <= 1e-3, f"flash bwd {label}: lse off by {lse_err:.3g}")
+            got = flash_attention_backward(q, k, v, o, lse, do, **kw)
+            check(flash_attention.backward_launches == before + 1,
+                  f"flash bwd {label}: the backward kernel did not run")
+            fn_grads = grads_of(lambda a, b_, c: flash_attention(a, b_, c, **kw),
+                                q, k, v, do)
+            check(flash_attention.backward_launches == before + 2,
+                  f"flash bwd {label}: the autograd Function did not run the kernel")
+            check(all(torch.equal(x, y) for x, y in zip(fn_grads, got)),
+                  f"flash bwd {label}: the Function's gradients != the wrapper's")
+        torch.cuda.synchronize()
+        want = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
+        auto = grads_of(plain_fwd, q, k, v, do)
+        errs, auto_errs = [], []
+        for name, g, w, a in zip("qkv", got, want, auto):
+            check(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+                  f"flash bwd {label}: d{name} {g.dtype} {list(g.shape)} or not finite")
+            errs.append(rel_err(g, w))
+            auto_errs.append(rel_err(g, a))
+        check(max(errs) <= tol, f"flash bwd {label}: kernel != plain version "
+              f"(dq/dk/dv error {', '.join(f'{e:.3g}' for e in errs)} of max |g|, tol {tol})")
+        check(max(auto_errs) <= tol, f"flash bwd {label}: kernel != autograd of the plain "
+              f"forward ({', '.join(f'{e:.3g}' for e in auto_errs)} of max |g|, tol {tol})")
+        if kw.get("window") == 0:
+            check(all(bool((g == 0).all()) for g in got),
+                  f"flash bwd {label}: fully masked rows give non-zero gradients")
+        worst = max(worst, *(float((g.float() - w.float()).abs().max())
+                             for g, w in zip(got, want)))
+        log(f"  ok  {label}: {list(shape)} {str(dtype)[6:]} {opts or ''}"
+            f"{' [padded]' if padded else ''} dq/dk/dv vs plain "
+            f"{'/'.join(f'{e:.2g}' for e in errs)}, vs autograd "
+            f"{'/'.join(f'{e:.2g}' for e in auto_errs)} of max |g| (tol {tol}); "
+            f"lse max |d| {lse_err:.2g}")
+    return worst
+
+
+# ----------------------------------------------------------------- phase 10
+
+def loss_and_grads(spec, params, batch):
+    flat = [p.detach().clone().requires_grad_() for p in leaves(params)]
+    loss, _ = spec.loss_fn(unflatten(params, flat), batch)
+    grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), unflatten(params, grads)
+
+
+def zero_flash_counts() -> None:
+    flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
+    flash_attention.backward_launches = 0
+
+
+def flash_counts() -> tuple[int, int, int]:
+    return (flash_attention.launches, flash_attention.tensor_core_launches,
+            flash_attention.backward_launches)
+
+
+def train_run(spec, opt_cfg, data, steps: int, *, compression: bool) -> dict:
+    """``steps`` of training through make_state / make_step / run_training
+    in a fresh checkpoint directory (saved at the last step); returns the
+    report, per-step host times, the flash launch counts, peak memory, the
+    final state and the save's time. The directory is removed."""
+    state = make_state(spec, opt_cfg, 0, compression=compression, device="cuda")
+    step = make_step(spec, opt_cfg, compression=compression)
+    times, ends = [], []
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(st, batch)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        times.append(ends[-1] - t0)
+        return out
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(dir=build_dir, prefix="chip_smoke_ckpt_")
+    try:
+        fault = FaultConfig(ckpt_dir=ckpt_dir, ckpt_every=steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts()
+        state, report = run_training(timed, state,
+                                     lambda i: data.batch_at(i, "cuda"), steps, fault)
+        done = time.perf_counter()
+        counts = flash_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # the last step's end to the runner's return: the save at the last
+        # step (device-to-host snapshot and the npz write)
+        save_s = done - ends[-1]
+        check(report.restarts == 0, f"training restarted {report.restarts} times: "
+              "a step raised (run_training catches and retries)")
+        check(report.steps_done == steps, f"{report.steps_done} steps, not {steps}")
+        check(all(np.isfinite(report.losses)), f"non-finite losses {report.losses}")
+        t0 = time.perf_counter()
+        back = restore(ckpt_dir, steps, state)
+        restore_s = time.perf_counter() - t0
+        for (path, a), (_, b) in zip(leaves_with_paths(back), leaves_with_paths(state)):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"checkpoint leaf {path} does not restore bit for bit")
+        del back
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(report=report, times=times, counts=counts, peak_gib=peak_gib,
+                state=state, save_s=save_s, restore_s=restore_s)
+
+
+def check_counts(counts, steps: int, layers: int, what: str) -> None:
+    fwd, tc, bwd = counts
+    need = layers * steps
+    check(fwd >= need and tc >= need and bwd >= need,
+          f"{what}: flash launches forward {fwd}, tensor-core {tc}, backward {bwd}; "
+          f"each must be >= {layers} per step ({need})")
+
+
+def profile_step(spec, opt_cfg, state, batch) -> None:
+    """One training step under torch.profiler: host time, the device's busy
+    share, the top kernels and the flash backward kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_step(spec, opt_cfg, compression=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new_state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del new_state
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    if not busy_us:
+        log("  profile of one step: device time not measured (no device events)")
+        return
+    bwd_us = sum(k[0] for k in kernels if "flash_bwd" in k[2])
+    fwd_us = sum(k[0] for k in kernels if "flash_fwd" in k[2])
+    log(f"  profile of one step: host {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}); flash backward kernels "
+        f"{bwd_us / 1e3:.3f} ms ({bwd_us / busy_us:.1%} of busy), flash forward "
+        f"{fwd_us / 1e3:.3f} ms ({fwd_us / busy_us:.1%}); top kernels:")
+    for us, count, name in kernels[:8]:
+        log(f"    {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{count:<5} {name[:70]}")
+
+
+def phase_train() -> int:
+    """Train, check and time; returns the backward launches of the 8-step
+    run."""
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype, cfg.remat)
+          == (28, 1024, 16, 8, 128, 3072, 151936, torch.bfloat16, True),
+          f"{TRAIN_ARCH} is not at full width with remat")
+    spec = build_model(cfg)
+    # the training CLI's defaults for this many steps
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(10, TRAIN_STEPS // 20))
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    run = train_run(spec, opt_cfg, data, TRAIN_STEPS, compression=False)
+    report, times = run["report"], run["times"]
+    check_counts(run["counts"], TRAIN_STEPS, cfg.num_layers, "training")
+    lo, hi = FIRST_LOSS_BAND
+    check(lo <= report.losses[0] <= hi,
+          f"first loss {report.losses[0]:.4f} outside [{lo}, {hi}] (ln vocab "
+          f"{np.log(cfg.vocab):.4f})")
+    ms = statistics.median(times[TRAIN_TIMED_FROM:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fwd, tc, bwd = run["counts"]
+    log(f"  {TRAIN_ARCH}: {spec.param_count(run['state']['params']) / 1e6:.1f} M params, "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat; restarts "
+        f"{report.restarts}")
+    log(f"  losses {', '.join(f'{x:.4f}' for x in report.losses)} (ln vocab "
+        f"{np.log(cfg.vocab):.4f})")
+    log(f"  flash launches over the run: forward {fwd} ({fwd / TRAIN_STEPS:g} a step), "
+        f"tensor-core {tc}, backward {bwd} ({bwd / TRAIN_STEPS:g} a step)")
+    log(f"  step times {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of steps "
+        f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS} {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} "
+        f"tokens/s; peak device memory {run['peak_gib']:.2f} GiB; checkpoint save at the "
+        f"last step {run['save_s']:.2f} s, restore {run['restore_s']:.2f} s (bit for bit)")
+    bwd_launches = bwd
+
+    profile_step(spec, opt_cfg, run["state"], data.batch_at(TRAIN_STEPS, "cuda"))
+    del run
+    torch.cuda.empty_cache()
+
+    run = train_run(spec, opt_cfg, data, COMPRESSION_STEPS, compression=True)
+    check_counts(run["counts"], COMPRESSION_STEPS, cfg.num_layers, "compressed training")
+    log(f"  --grad-compression: {COMPRESSION_STEPS} steps, losses "
+        f"{', '.join(f'{x:.4f}' for x in run['report'].losses)}, restarts "
+        f"{run['report'].restarts}, peak device memory {run['peak_gib']:.2f} GiB, step "
+        f"times {', '.join(f'{t * 1e3:.1f}' for t in run['times'])} ms")
+    del run
+    torch.cuda.empty_cache()
+
+    # f32 at full width, batch 1 x 2048: kernels against plain attention
+    spec32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    params32 = spec32.init(0, "cuda")
+    batch = SyntheticLM(cfg, 1, TRAIN_SEQ, seed=1).batch_at(0, "cuda")
+    zero_flash_counts()
+    loss, grads = loss_and_grads(spec32, params32, batch)
+    fwd, tc, bwd = flash_counts()
+    check(bwd == cfg.num_layers and fwd == 2 * cfg.num_layers and tc == 0,
+          f"f32 step: forward {fwd}, tensor-core {tc}, backward {bwd} launches; "
+          f"expected {2 * cfg.num_layers}, 0, {cfg.num_layers}")
+    with plain_attention():
+        plain_loss, plain = loss_and_grads(spec32, params32, batch)
+    check(flash_counts() == (fwd, tc, bwd), "the plain-attention step launched a kernel")
+    loss_err = abs(float(loss) - float(plain_loss))
+    check(loss_err <= PARITY_LOSS_TOL * max(1.0, abs(float(plain_loss))),
+          f"f32 loss {float(loss):.7f} vs plain attention {float(plain_loss):.7f}")
+    worst, worst_path = 0.0, ""
+    for (path, g), (_, w) in zip(leaves_with_paths(grads), leaves_with_paths(plain)):
+        err = rel_err(g, w)
+        check(err <= PARITY_GRAD_TOL, f"f32 gradient {path}: {err:.3g} of its max |g| "
+              f"(tol {PARITY_GRAD_TOL})")
+        if err > worst:
+            worst, worst_path = err, path
+    log(f"  f32 full width, batch 1 x {TRAIN_SEQ}: loss {float(loss):.7f} vs plain "
+        f"attention {float(plain_loss):.7f} (|d| {loss_err:.3g}); gradients of "
+        f"{len(leaves(grads))} leaves within {worst:.3g} of each leaf's max |g| (worst "
+        f"{worst_path}; tol {PARITY_GRAD_TOL}); {bwd} backward launches")
+    return bwd_launches
+
+
+# ----------------------------------------------------------------- phase 11
+
+def flash_bwd_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Least time for the card at ``shape`` (causal): the five products of
+    the backward (2.5x the forward's FLOPs) over the bf16 tensor-core peak,
+    or q, k, v, o, d out and lse read and dq, dk, dv written once over HBM
+    bandwidth."""
+    b, hq, hkv, s_len, d = shape
+    flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
+    nbytes = (4 * b * hq + 4 * b * hkv) * s_len * d * itemsize + b * hq * s_len * 4
+    by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def phase_flash_bwd_timing() -> dict:
+    """The backward kernel at the training shape in turns with the backward
+    of ``scaled_dot_product_attention`` through autograd (kernel, sdpa,
+    kernel, sdpa), then its plain version."""
+    q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, seed=2)
+    do = qkv(TRAIN_SHAPE, torch.bfloat16, seed=3)[0]
+    kw = dict(sm_scale=TRAIN_SHAPE[-1] ** -0.5)
+    o, lse = flash_attention_lse(q, k, v, **kw)
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    kernel_ms, library_ms = [], []
+    for _ in range(2):
+        kernel_ms.append(time_ms(lambda: flash_attention_backward(q, k, v, o, lse, do, **kw),
+                                 TIMED_RUNS, BWD_INNER))
+        library_ms.append(time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (ql, kl, vl), do, retain_graph=True), TIMED_RUNS, BWD_INNER))
+    ms = statistics.median(kernel_ms)
+    lib_ms = statistics.median(library_ms)
+    plain_ms = time_ms(lambda: flash_attention_backward_torch(q, k, v, o, lse, do, **kw), 3)
+    bound_ms, bound_by = flash_bwd_bound(TRAIN_SHAPE, q.element_size())
+    b, hq, hkv, s_len, d = TRAIN_SHAPE
+    flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
+    log(f"  training shape {list(TRAIN_SHAPE)} bf16 causal, backward kernel: "
+        f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms in turns with the backward of "
+        f"scaled_dot_product_attention {', '.join(f'{t:.4f}' for t in library_ms)} ms "
+        f"(medians of {TIMED_RUNS} x {BWD_INNER} back to back); plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3g} FLOP), {bound_ms / ms:.1%} of "
+        f"bound, {flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -709,6 +1098,16 @@ def main() -> int:
     log(f"[8] flash_attention timing on {smi}")
     flash_row = phase_flash_timing()
 
+    log("[9] flash_attention backward kernel vs its plain version and autograd")
+    bwd_err = phase_flash_bwd()
+
+    log(f"[10] training path: {TRAIN_ARCH} at full width, {TRAIN_STEPS} steps of "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, then {COMPRESSION_STEPS} with compression")
+    bwd_launches = phase_train()
+
+    log(f"[11] flash_attention backward timing on {smi}")
+    bwd_row = phase_flash_bwd_timing()
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
@@ -733,6 +1132,18 @@ def main() -> int:
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

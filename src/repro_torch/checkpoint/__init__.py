@@ -1,0 +1,3 @@
+from .ckpt import AsyncCheckpointer, latest_step, restore, save
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]

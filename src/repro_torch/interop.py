@@ -8,7 +8,10 @@ them, and :func:`plain_mapping` takes the same data from any object with
 those attributes — without importing that object's package.
 
 :func:`lm_params_from_numpy` turns an LM parameter tree of numpy arrays (the
-JAX package's, converted leaf by leaf) into this package's parameters.
+JAX package's, converted leaf by leaf) into this package's parameters, and
+:func:`lm_params_to_numpy` turns this package's parameters (or gradients, or
+optimizer moments: any tree of that layout) back into the JAX package's
+stacked layout.
 """
 
 from __future__ import annotations
@@ -104,6 +107,31 @@ def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
         else:
             out[key] = convert(node)
     return out
+
+
+def lm_params_to_numpy(tree: dict) -> dict:
+    """The inverse layout of :func:`lm_params_from_numpy`: each ``*_stack``
+    list of L per-layer dicts becomes one dict whose leaves are stacked on a
+    leading ``[L, ...]`` axis, as the JAX package keeps them; every tensor
+    becomes a numpy array on the host. numpy has no bfloat16, so bf16
+    leaves come back as float32 (exactly: every bf16 value is an f32)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([layer[k] for layer in layers]) for k in first}
+        return np.stack([host(t) for t in layers])
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return host(node)
+
+    return {key: stack(node) if key.endswith("_stack") else convert(node)
+            for key, node in tree.items()}
 
 
 def _first_leaf(node):

@@ -6,8 +6,10 @@ ops.py              lowering of a mapping to per-step tables
                     (``cgra_run``)
 cgra_sim.py         the cgra_sim kernel's wrapper, its plain PyTorch version
                     and its launch counter
-flash_attention.py  the flash-attention kernel's wrapper, its plain PyTorch
-                    version, its launch counter and the padding path
+flash_attention.py  the flash-attention kernels' wrappers (forward, with the
+                    log-sum-exp, and backward), the autograd Function that
+                    joins them, their plain PyTorch versions, the launch
+                    counters and the padding path
 csrc/               the hand-written CUDA sources, built at first use by
                     _build.py
 ref.py              the oracles the kernels are held against

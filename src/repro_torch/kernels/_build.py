@@ -33,10 +33,12 @@ _LIB_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 # numpy's float32 does.
 NVCC_FLAGS = (*_BASE_FLAGS, "-fmad=false", *_LIB_FLAGS)
 
-#: Flags of each kernel that does not take NVCC_FLAGS. flash_attention is
-#: held to a tolerance, not bit for bit, so it keeps nvcc's FMA contraction
-#: (still no fast math: expf and tanhf stay accurate).
-KERNEL_FLAGS = {"flash_attention": (*_BASE_FLAGS, *_LIB_FLAGS)}
+#: Flags of each kernel that does not take NVCC_FLAGS. The flash-attention
+#: forward and backward are held to a tolerance, not bit for bit, so they
+#: keep nvcc's FMA contraction (still no fast math: expf and tanhf stay
+#: accurate). Each source is its own library, so the builds run in parallel.
+KERNEL_FLAGS = {"flash_attention": (*_BASE_FLAGS, *_LIB_FLAGS),
+                "flash_attention_bwd": (*_BASE_FLAGS, *_LIB_FLAGS)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -12,6 +12,10 @@
 // h / group), f32 running max, denominator and accumulator with the
 // reference's guard m_new > -1e30 / 2, fully masked rows giving 0, and the
 // output cast to q's dtype. q, k, v and out are contiguous [B, H, S, D].
+// When the caller passes an lse buffer ([B * Hq, S] f32; the training
+// forward does, serving passes null), both kernels also write each row's
+// log-sum-exp m + log(l) in natural log, -inf for a fully masked row (l = 0):
+// the backward (flash_attention_bwd.cu) recomputes the probabilities from it.
 //
 // What bounds it on an H100: the two products are 4 * S^2 * D FLOPs per
 // (batch, q-head), halved by the causal mask (6.9e10 at B 4, Hq 16, Hkv 8,
@@ -83,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 
@@ -168,9 +173,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int Hq,
-          int group, float scale, int causal, int has_window, int window,
-          int has_cap, float cap) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int S, int Hq, int group, float scale, int causal, int has_window,
+          int window, int has_cap, float cap) {
   constexpr int D = NC * 32;
   constexpr int DP = D + PAD;
   using P4 = typename Pack4<T>::type;
@@ -326,12 +331,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
       oh[static_cast<size_t>(qp) * D + lane + 32 * c] = from_f32<T>(acc[i][c] / denom);
     }
+    if (lse != nullptr && lane == 0) {
+      lse[static_cast<size_t>(bh) * S + qp] = l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
+    }
   }
 }
 
 template <typename T, int NC>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o,
-                         int B, int Hq, int Hkv, int S, float scale,
+                         float* lse, int B, int Hq, int Hkv, int S, float scale,
                          int causal, int has_window, int window, int has_cap,
                          float cap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, NC>();
@@ -342,19 +350,19 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, B * Hq);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hq / Hkv, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Hq, Hq / Hkv, scale,
       causal, has_window, window, has_cap, cap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, int B, int Hq, int Hkv, int S, float scale,
-                     int causal, int has_window, int window, int has_cap,
-                     float cap, cudaStream_t stream) {
+                     void* o, float* lse, int B, int Hq, int Hkv, int S,
+                     float scale, int causal, int has_window, int window,
+                     int has_cap, float cap, cudaStream_t stream) {
 #define FLASH_CASE(NC)                                                        \
   case NC * 32:                                                               \
-    return launch_typed<T, NC>(q, k, v, o, B, Hq, Hkv, S, scale, causal,      \
+    return launch_typed<T, NC>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, \
                                has_window, window, has_cap, cap, stream);
   switch (D) {
     FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4)
@@ -481,8 +489,9 @@ template <typename T, int D>
 __device__ __forceinline__ void consume(
     unsigned char* sQ, unsigned char* sK, unsigned char* sV, uint64_t* q_full,
     uint64_t* k_full, uint64_t* k_empty, uint64_t* v_full, uint64_t* v_empty,
-    T* __restrict__ o, int q0, int bh, int kv_lo, int n_tiles, int warp, int S,
-    float scale, int causal, int has_window, int window, int has_cap, float cap) {
+    T* __restrict__ o, float* __restrict__ lse, int q0, int bh, int kv_lo,
+    int n_tiles, int warp, int S, float scale, int causal, int has_window,
+    int window, int has_cap, float cap) {
   using C = Tiles<D>;
   constexpr int BKV = C::BKV;
   const int wg = warp / 4;
@@ -620,6 +629,21 @@ __device__ __forceinline__ void consume(
   }
   for (int i = t1; i < n_tiles; ++i) skip(i);
 
+  // lse = m + log(l) in natural log (m is kept in base 2), -inf where l = 0.
+  // Each row's m and l are whole in all 4 threads of its quad after the
+  // quad reductions; the quad's first thread writes. Rows past S dropped.
+  if (lse != nullptr && lane % 4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    if (row0 < S) {
+      lse[static_cast<size_t>(bh) * S + row0] =
+          l[0] == 0.f ? -INFINITY : m[0] * LN2 + logf(l[0]);
+    }
+    if (row1 < S) {
+      lse[static_cast<size_t>(bh) * S + row1] =
+          l[1] == 0.f ? -INFINITY : m[1] * LN2 + logf(l[1]);
+    }
+  }
+
   // out = acc / l (0 -> 1), rows past S dropped
   const float inv0 = 1.f / (l[0] == 0.f ? 1.f : l[0]);
   const float inv1 = 1.f / (l[1] == 0.f ? 1.f : l[1]);
@@ -643,8 +667,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tmap_q,
              const __grid_constant__ CUtensorMap tmap_k,
              const __grid_constant__ CUtensorMap tmap_v, T* __restrict__ o,
-             int S, int Hq, int group, float scale, int causal,
-             int has_window, int window, int has_cap, float cap) {
+             float* __restrict__ lse, int S, int Hq, int group, float scale,
+             int causal, int has_window, int window, int has_cap, float cap) {
   using C = Tiles<D>;
   constexpr int BKV = C::BKV;
 
@@ -715,8 +739,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmap_q,
   } else {
     // ---------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
-    consume<T, D>(sQ, sK, sV, &q_full, k_full, k_empty, v_full, v_empty, o, q0, bh,
-                  kv_lo, n_tiles, warp, S, scale, causal, has_window, window,
+    consume<T, D>(sQ, sK, sV, &q_full, k_full, k_empty, v_full, v_empty, o, lse, q0,
+                  bh, kv_lo, n_tiles, warp, S, scale, causal, has_window, window,
                   has_cap, cap);
   }
 }
@@ -780,9 +804,10 @@ template <> constexpr CUtensorMapDataType map_type<__half>() {
 }
 
 template <typename T, int D>
-int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int S, float scale, int causal, int has_window,
-                 int window, int has_cap, float cap, cudaStream_t stream) {
+int launch_typed(const void* q, const void* k, const void* v, void* o, float* lse,
+                 int B, int Hq, int Hkv, int S, float scale, int causal,
+                 int has_window, int window, int has_cap, float cap,
+                 cudaStream_t stream) {
   using C = Tiles<D>;
   EncodeTiled encode;
   int err = encoder(&encode);
@@ -799,18 +824,19 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid((S + BQ - 1) / BQ, B * Hq);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(
-      tmap_q, tmap_k, tmap_v, static_cast<T*>(o), S, Hq, Hq / Hkv, scale, causal,
-      has_window, window, has_cap, cap);
+      tmap_q, tmap_k, tmap_v, static_cast<T*>(o), lse, S, Hq, Hq / Hkv, scale,
+      causal, has_window, window, has_cap, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int S, float scale, int causal, int has_window,
-             int window, int has_cap, float cap, cudaStream_t stream) {
+int launch_d(int D, const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Hq, int Hkv, int S, float scale, int causal,
+             int has_window, int window, int has_cap, float cap,
+             cudaStream_t stream) {
 #define FLASH_TC_CASE(D_)                                                     \
   case D_:                                                                    \
-    return launch_typed<T, D_>(q, k, v, o, B, Hq, Hkv, S, scale, causal,      \
+    return launch_typed<T, D_>(q, k, v, o, lse, B, Hq, Hkv, S, scale, causal, \
                                has_window, window, has_cap, cap, stream);
   switch (D) {
     FLASH_TC_CASE(64) FLASH_TC_CASE(128) FLASH_TC_CASE(192) FLASH_TC_CASE(256)
@@ -836,9 +862,10 @@ int flash_attention_uses_tensor_cores(int dtype, int D) {
 // q, out: [B, Hq, S, D]; k, v: [B, Hkv, S, D]; all contiguous, of the
 // type `dtype` (0 f32, 1 bf16, 2 f16) and aligned to 16 bytes. Hq is a
 // multiple of Hkv, D a multiple of 32 up to 256, B * Hq <= 65535.
-// has_window = 0 ignores `window`; has_cap = 0 ignores `cap`.
+// has_window = 0 ignores `window`; has_cap = 0 ignores `cap`. lse, when
+// not null, is [B * Hq, S] f32 and receives each row's log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int dtype, int B, int Hq, int Hkv,
+                           void* out, float* lse, int dtype, int B, int Hq, int Hkv,
                            int S, int D, float sm_scale, int causal,
                            int has_window, int window, int has_cap, float cap,
                            void* stream) {
@@ -848,24 +875,25 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flash_attention_uses_tensor_cores(dtype, D)) {
     if (dtype == BF16) {
-      return tc::launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale,
-                                         causal, has_window, window, has_cap, cap, st);
+      return tc::launch_d<__nv_bfloat16>(D, q, k, v, out, lse, B, Hq, Hkv, S,
+                                         sm_scale, causal, has_window, window,
+                                         has_cap, cap, st);
     }
-    return tc::launch_d<__half>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale, causal,
-                                has_window, window, has_cap, cap, st);
+    return tc::launch_d<__half>(D, q, k, v, out, lse, B, Hq, Hkv, S, sm_scale,
+                                causal, has_window, window, has_cap, cap, st);
   }
   cudaError_t err;
   switch (dtype) {
     case F32:
-      err = launch_d<float>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale, causal,
+      err = launch_d<float>(D, q, k, v, out, lse, B, Hq, Hkv, S, sm_scale, causal,
                             has_window, window, has_cap, cap, st);
       break;
     case BF16:
-      err = launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale,
+      err = launch_d<__nv_bfloat16>(D, q, k, v, out, lse, B, Hq, Hkv, S, sm_scale,
                                     causal, has_window, window, has_cap, cap, st);
       break;
     case F16:
-      err = launch_d<__half>(D, q, k, v, out, B, Hq, Hkv, S, sm_scale, causal,
+      err = launch_d<__half>(D, q, k, v, out, lse, B, Hq, Hkv, S, sm_scale, causal,
                              has_window, window, has_cap, cap, st);
       break;
     default:

@@ -9,10 +9,10 @@ exposing, in this package:
     prefill(params, tokens, cache_len) -> (logits_last, caches)  [inference]
     decode_step(params, tok, caches, pos) -> (logits, caches)    [inference]
     make_caches(params, batch, cache_len) -> caches
+    loss_fn(params, batch)    -> (loss, metrics)                    [training]
 
-``loss_fn`` and ``input_specs`` stay ``None`` until the training and
-dry-run slices are ported. ``dtype`` holds a torch dtype: bf16 by default,
-f32 in :meth:`ArchConfig.reduced`.
+``input_specs`` stays ``None`` until the dry-run slice is ported. ``dtype``
+holds a torch dtype: bf16 by default, f32 in :meth:`ArchConfig.reduced`.
 
 Shapes: each arch owns the assignment's four shapes; `shapes()` applies the
 skip policy (no long_500k for pure full-attention archs — see DESIGN.md §5).

@@ -3,9 +3,10 @@
 The PyTorch counterpart of the GQA part of the JAX package's
 ``src/repro/models/attention.py``. Every causal pass with more than one
 query, no ``cross_kv`` and no ``prefix_len`` (prefill, and a parallel
-forward without caches) computes attention with the hand-written
-flash-attention kernel (``kernels/flash_attention.py``), over the prompt's
-own k/v. That equals the reference, which attends over the whole cache with
+forward without caches, as in training) computes attention with the
+hand-written flash-attention kernel (``kernels/flash_attention.py``), over
+the prompt's own k/v; with grad on, its gradient runs in the hand-written
+backward kernel. That equals the reference, which attends over the whole cache with
 a ``valid`` mask: keys past the prompt are masked both by ``valid`` and by
 causality. Decode (one query) and the other passes attend in plain torch
 ops, as the reference does outside any Pallas kernel.

@@ -4,19 +4,22 @@ The PyTorch counterpart of the dense part of the JAX package's
 ``src/repro/models/build.py``. Parameters are nested dicts of tensors with
 the reference's keys; a layer stack is a list of per-layer dicts (the
 reference stacks them on a leading axis for ``lax.scan``), run by a plain
-loop with no remat. Caches are lists of per-layer :class:`KVCache`, updated
-in place.
+loop. With ``cfg.remat``, grad mode on and no caches, each layer runs under
+``torch.utils.checkpoint`` (the reference wraps each layer in
+``jax.checkpoint``): its activations are recomputed in the backward. Caches
+are lists of per-layer :class:`KVCache`, updated in place. ``lm_loss`` is
+the training loss.
 
 Not ported yet, and raising ``NotImplementedError`` when a config asks for
 them: MoE stacks, multi-token prediction (``mtp``), meta tokens,
-prefix-LM masking and frontends (ROADMAP queue 1 item 3), and ``lm_loss``
-(the training path, ROADMAP queue 1 item 2).
+prefix-LM masking and frontends (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from .api import ArchConfig
@@ -24,8 +27,8 @@ from .attention import (
     NOT_PORTED, KVCache, gqa_attention, gqa_init, make_kv_cache,
 )
 from .layers import (
-    dense_param, embed_param, geglu_mlp, gelu_mlp, gelu_mlp_init, rms_norm,
-    softcap, swiglu_mlp, swiglu_mlp_init,
+    cross_entropy_loss, dense_param, embed_param, geglu_mlp, gelu_mlp,
+    gelu_mlp_init, rms_norm, softcap, swiglu_mlp, swiglu_mlp_init,
 )
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -99,9 +102,25 @@ def layer_windows(cfg: ArchConfig, num_layers: int, offset: int = 0) -> np.ndarr
     return w
 
 
+def _block_out(p: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ArchConfig, window: int) -> torch.Tensor:
+    """A block without a cache, as :func:`apply_stack` checkpoints it."""
+    return block_apply(p, x, positions, cfg, window=window)[0]
+
+
 def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
                 positions: torch.Tensor, cfg: ArchConfig, *, caches=None):
-    """A plain loop over the layers of one stack; returns (x, caches)."""
+    """A plain loop over the layers of one stack; returns (x, caches).
+
+    With ``cfg.remat``, grad mode on and no caches, each layer is a
+    non-reentrant ``torch.utils.checkpoint``: the backward runs its forward
+    again (the flash kernel included) and uses only that recompute's saved
+    tensors."""
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        for i, p_l in enumerate(stack):
+            x = checkpoint(_block_out, p_l, x, positions, cfg, int(windows[i]),
+                           use_reentrant=False, preserve_rng_state=False)
+        return x, None
     new_caches = []
     for i, p_l in enumerate(stack):
         x, nc = block_apply(p_l, x, positions, cfg, window=int(windows[i]),
@@ -162,6 +181,18 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None):
         )
         new_caches[stack_name] = nc
     return x, (new_caches if caches is not None else None)
+
+
+def lm_loss(params, cfg: ArchConfig, batch):
+    """Mean next-token cross-entropy (with the reference's z-loss) of
+    ``batch["tokens"]`` against ``batch["labels"]``; returns (loss, metrics)
+    with metrics ``ce`` and ``aux`` (0 for the dense family: no MoE)."""
+    x, _ = lm_forward(params, cfg, batch["tokens"])
+    logits = _unembed(params, cfg, x)
+    loss = cross_entropy_loss(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics = {"ce": loss, "aux": aux}
+    return loss + aux, metrics
 
 
 # ----------------------------------------------------------- serve paths

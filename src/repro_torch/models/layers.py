@@ -90,3 +90,15 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token CE in f32, with an optional z-loss stabiliser."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse**2).mean()
+    return loss

@@ -12,9 +12,10 @@ from .api import ArchConfig, ModelSpec
 from .attention import NOT_PORTED
 
 def build_model(cfg: ArchConfig) -> ModelSpec:
-    """The serving surface of ``cfg``'s model: ``init(seed, device)``,
-    ``prefill(params, tokens, cache_len)``, ``decode_step(params, token,
-    caches, pos)`` and ``make_caches(params, batch, cache_len)``."""
+    """The surface of ``cfg``'s model: ``init(seed, device)``,
+    ``loss_fn(params, batch) -> (loss, metrics)``, ``prefill(params,
+    tokens, cache_len)``, ``decode_step(params, token, caches, pos)`` and
+    ``make_caches(params, batch, cache_len)``."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {NOT_PORTED}")
@@ -22,6 +23,9 @@ def build_model(cfg: ArchConfig) -> ModelSpec:
 
     def init(seed, device="cuda"):
         return lm._lm_init(seed, cfg, device)
+
+    def loss_fn(params, batch):
+        return lm.lm_loss(params, cfg, batch)
 
     def prefill(params, batch, cache_len):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
@@ -33,7 +37,7 @@ def build_model(cfg: ArchConfig) -> ModelSpec:
     def make_caches(params, batch, cache_len):
         return lm.lm_make_caches(params, cfg, batch, cache_len)
 
-    return ModelSpec(cfg=cfg, init=init, prefill=prefill,
+    return ModelSpec(cfg=cfg, init=init, loss_fn=loss_fn, prefill=prefill,
                      decode_step=decode_step, make_caches=make_caches,
                      param_count=param_count)
 

@@ -14,12 +14,18 @@ from repro_torch.core.benchsuite import load_suite
 from repro_torch.configs import get_config
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_padded, flash_attention_torch,
+    _FlashAttention, flash_attention, flash_attention_backward,
+    flash_attention_backward_torch, flash_attention_lse, flash_attention_padded,
+    flash_attention_torch,
 )
 from repro_torch.kernels.ops import cgra_run, compile_program
 from repro_torch.kernels.ref import cgra_sim_reference
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import train
 from repro_torch.launch.serve import serve_batch
-from repro_torch.models import build_model
+from repro_torch.models import attention, build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.tree import leaves, unflatten
 
 pytestmark = pytest.mark.gpu
 
@@ -174,3 +180,117 @@ def test_reduced_serve_on_the_card_launches_flash(cuda):
     got, _ = spec.prefill(params, torch.as_tensor(prompts, device=cuda), 150)
     want, _ = spec.prefill(cpu, torch.as_tensor(prompts), 150)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------ flash attention backward
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (over 1 where want is all 0)."""
+    return float((got.float() - want.float()).abs().max()
+                 / max(float(want.float().abs().max()), 1.0))
+
+
+# f32 within 2e-5 and bf16/f16 within 2e-2 of each gradient's max |g|
+@pytest.mark.parametrize("case", [
+    ((2, 4, 2, 256, 64), torch.float32, {}),
+    ((1, 8, 1, 256, 96), torch.float32, {"window": 64, "softcap": 20.0}),
+    ((1, 2, 2, 128, 64), torch.float32, {"causal": False}),
+    ((2, 8, 4, 512, 256), torch.float32, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 2, 256, 128), torch.bfloat16, {}),
+    ((1, 4, 2, 48, 64), torch.float16, {}),
+    ((1, 2, 2, 256, 128), torch.bfloat16, {"window": 0}),
+])
+def test_flash_backward_kernel_matches_plain(cuda, case):
+    shape, dtype, kw = case
+    b, hq, hkv, s, d = shape
+    q, k, v = _qkv(*shape, dtype, cuda)
+    do = _qkv(b, hq, hkv, s, d, dtype, cuda, seed=1)[0]
+    opts = dict(sm_scale=d ** -0.5, **kw)
+    o, lse = flash_attention_lse(q, k, v, **opts)
+    want_o, want_lse = flash_attention_torch(q, k, v, return_lse=True, **opts)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-4, rtol=1e-5)
+    before = flash_attention.backward_launches
+    got = flash_attention_backward(q, k, v, o, lse, do, **opts)
+    assert flash_attention.backward_launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_backward_torch(q, k, v, o, lse, do, **opts)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= tol
+    if kw.get("window") == 0:
+        assert all(torch.equal(g, torch.zeros_like(g)) for g in got)
+
+
+def test_flash_output_keeps_its_gradient_on_the_card(cuda):
+    """With grad on, the output's node is the Function's and the gradient
+    of a loss through it matches autograd through the plain version."""
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 4, 2, 256, 64, torch.float32, cuda))
+    before = flash_attention.backward_launches
+    out = flash_attention(q, k, v, window=100, softcap=30.0)
+    assert type(out.grad_fn) is _FlashAttention._backward_cls
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert flash_attention.backward_launches == before + 1
+    plain = flash_attention_torch(q, k, v, window=100, softcap=30.0)
+    want = torch.autograd.grad(plain.square().sum(), (q, k, v))
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 2e-5
+
+
+# --------------------------------------------------------------- training
+
+def _loss_and_grads(spec, params, batch):
+    flat = [p.detach().clone().requires_grad_() for p in leaves(params)]
+    loss, _ = spec.loss_fn(unflatten(params, flat), batch)
+    return loss, unflatten(params, torch.autograd.grad(loss, flat))
+
+
+def test_gradient_reaches_w_q_on_the_card(cuda, monkeypatch):
+    """Reduced qwen3-0.6b in f32 on the card: the loss's gradient reaches
+    every layer's w_q, non-zero, through the flash kernels (one backward
+    launch per layer), and matches the same loss with the plain attention
+    version (autograd through flash_attention_torch) within 1e-4 of each
+    leaf's max |g|."""
+    spec = build_model(get_config("qwen3-0.6b").reduced())
+    params = spec.init(0, cuda)
+    toks = np.random.default_rng(2).integers(1, spec.cfg.vocab, size=(2, 137))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=cuda),
+             "labels": torch.as_tensor(toks[:, 1:], device=cuda)}
+    before = flash_attention.backward_launches
+    loss, grads = _loss_and_grads(spec, params, batch)
+    assert flash_attention.backward_launches - before == spec.cfg.num_layers
+    monkeypatch.setattr(attention, "flash_attention_padded",
+                        lambda q, k, v, **kw: flash_attention_torch(q, k, v, causal=True, **kw))
+    plain_loss, plain = _loss_and_grads(spec, params, batch)
+    torch.testing.assert_close(loss, plain_loss, atol=1e-5, rtol=1e-5)
+    for layer, (got, want) in enumerate(zip(grads["dense_stack"], plain["dense_stack"])):
+        assert float(got["attn"]["w_q"].abs().max()) > 0, layer
+    for g, w in zip(leaves(grads), leaves(plain)):
+        assert _rel_err(g, w) <= 1e-4
+
+
+def test_reduced_training_step_on_the_card(cuda):
+    """make_step on the card: one backward launch per layer per step (the
+    forward twice under remat), finite losses, and the first step's loss
+    equals the CPU path's within 1e-4."""
+    cfg = get_config("qwen3-0.6b").reduced()
+    spec = build_model(cfg)
+    opt_cfg = AdamWConfig(total_steps=3, warmup_steps=1)
+    data = SyntheticLM(cfg, 2, 64, seed=0)
+    step = train.make_step(spec, opt_cfg, compression=True)
+    state = train.make_state(spec, opt_cfg, 0, compression=True, device=cuda)
+    cpu_state = {"params": _to(state["params"], "cpu"), "opt": _to(state["opt"], "cpu"),
+                 "residual": _to(state["residual"], "cpu")}
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    losses = []
+    for i in range(3):
+        state, metrics = step(state, data.batch_at(i, cuda))
+        losses.append(float(metrics["loss"]))
+    assert flash_attention.backward_launches - bwd == 3 * cfg.num_layers
+    assert flash_attention.launches - fwd == 2 * 3 * cfg.num_layers
+    assert np.isfinite(losses).all()
+    _, cpu_metrics = step(cpu_state, data.batch_at(0, "cpu"))
+    assert abs(losses[0] - float(cpu_metrics["loss"])) <= 1e-4

@@ -1,0 +1,187 @@
+"""The port's flash-attention gradient against JAX's autodiff, on the CPU.
+
+The JAX package trains through ``jax.value_and_grad`` of its attention; its
+Pallas kernel has no VJP. The port's backward kernel computes the same
+gradient, and its plain version (``flash_attention_backward_torch``), which
+the autograd Function runs on CPU tensors, is held here against
+``jax.vjp`` of the JAX ``reference_attention`` on the whole sweep of
+tests/test_kernels_flash.py, with the same inputs (made from numpy seeds)
+and the forward's tolerances: 2e-5 in f32, 2e-2 in bf16. The CUDA kernel
+itself is held against the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import reference_attention as _jax_reference_attention
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels.flash_attention import (
+    _FlashAttention, flash_attention, flash_attention_backward,
+    flash_attention_backward_torch, flash_attention_lse, flash_attention_padded,
+    flash_attention_torch,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These cases are small: one intra-op thread runs them as fast, and
+    leaves the cores to the tests that other workers run beside them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _jax_grads(q, k, v, do, **kw):
+    """(out, dq, dk, dv) of the JAX reference attention at cotangent do."""
+    out, vjp = jax.vjp(lambda a, b, c: _jax_reference_attention(a, b, c, **kw), q, k, v)
+    return (out, *vjp(do))
+
+
+# one XLA program per case, not one dispatch per op
+jax_grads = jax.jit(_jax_grads, static_argnames=("causal", "window", "softcap"))
+
+# (b, hq, hkv, s, d, options) of every case of tests/test_kernels_flash.py,
+# then window 0 (every row masked)
+SWEEP = (
+    [((2, 4, 2, s, d), {}) for s in (128, 256, 512) for d in (64, 128)]
+    + [((1, hq, hkv, 256, 64), {}) for hq, hkv in ((4, 4), (8, 2), (8, 1))]
+    + [((1, 2, 2, 256, 64), {"window": w}) for w in (64, 128, 1000)]
+    + [((1, 2, 1, 256, 64), {"cap": c}) for c in (20.0, 50.0)]
+    + [((1, 2, 2, 128, 64), {"causal": False})]
+    + [((2, 8, 4, 512, 128), {"window": 128, "cap": 50.0})]
+    + [((1, 4, 2, 256, 64), {"dtype": jnp.bfloat16})]
+    + [((1, 2, 2, 128, 64), {"window": 0})]
+)
+
+
+def _ids(case):
+    shape, opts = case
+    return "x".join(map(str, shape)) + "".join(
+        f"-{k}{getattr(v, '__name__', v)}" for k, v in opts.items())
+
+
+def _inputs(b, hq, hkv, s, d, dtype=jnp.float32):
+    """q, k, v and an output cotangent, as JAX arrays and torch tensors."""
+    rng = np.random.default_rng(hash((b, hq, hkv, s, d)) % 2**31)
+    j = [jnp.asarray(rng.standard_normal(shape), dtype)
+         for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))]
+    return j, [_torch(x) for x in j]
+
+
+def _torch(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+def _kw(opts):
+    return dict(causal=opts.get("causal", True), window=opts.get("window"),
+                softcap=opts.get("cap"))
+
+
+@pytest.mark.parametrize("case", SWEEP, ids=_ids)
+def test_gradient_matches_jax_autodiff_of_the_reference(case):
+    """The plain backward (fed the plain forward's output and lse), and the
+    autograd Function's CPU gradient, against jax.vjp of the reference."""
+    (b, hq, hkv, s, d), opts = case
+    dtype = opts.get("dtype", jnp.float32)
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    kw = _kw(opts)
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(b, hq, hkv, s, d, dtype)
+    want = jax_grads(jq, jk, jv, jdo, **kw)
+
+    o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+    _close(o, want[0], tol)
+    assert lse.shape == (b * hq, s) and lse.dtype == torch.float32
+    got = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
+    for g, w, t in zip(got, want[1:], (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, w, tol)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.backward_launches
+    out = flash_attention(*leaves, **kw)
+    assert type(out.grad_fn) is _FlashAttention._backward_cls
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.backward_launches == before    # CPU: no kernel
+    for g, w in zip(grads, want[1:]):
+        _close(g, w, tol)
+    if kw["window"] == 0:                 # q - k < 0 never holds causally
+        assert torch.isinf(lse).all() and (lse < 0).all()
+        assert all(torch.equal(g, torch.zeros_like(g)) for g in grads)
+
+
+@pytest.mark.parametrize("s,opts", [(200, {}), (300, {"window": 64, "softcap": 30.0})])
+def test_gradient_through_the_padding_path(s, opts):
+    """flash_attention_padded differentiates through its pad and slice."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(1, 4, 2, s, 64)
+    want = jax_grads(jq, jk, jv, jdo, causal=True, **opts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_padded(*leaves, **opts)
+    assert out.shape == q.shape
+    for g, w in zip(torch.autograd.grad(out, leaves, do), want[1:]):
+        _close(g, w, 2e-5)
+
+
+def test_output_carries_the_function_node_whenever_an_input_requires_grad():
+    """The repair of a detached output: with grad on and any of q, k, v
+    requiring grad, the result is the Function's; otherwise it is a plain
+    tensor with no graph, as serving wants it."""
+    _, (q, k, v, _) = _inputs(1, 4, 2, 128, 64)
+    for i in range(3):
+        qkv = [q, k, v]
+        qkv[i] = qkv[i].clone().requires_grad_()
+        out = flash_attention(*qkv)
+        assert type(out.grad_fn) is _FlashAttention._backward_cls
+        (g,) = torch.autograd.grad(out.sum(), qkv[i])
+        assert g.abs().sum() > 0
+    assert flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert flash_attention(q.clone().requires_grad_(), k, v).grad_fn is None
+    # the Function's forward is the plain forward, bit for bit
+    out = flash_attention(q.clone().requires_grad_(), k, v)
+    assert torch.equal(out.detach(), flash_attention_torch(q, k, v))
+
+
+def test_function_saves_the_forward_lse_and_calls_both_halves(monkeypatch):
+    """The Function runs flash_attention_lse in its forward and
+    flash_attention_backward in its backward, with the same options."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, kw["sm_scale"], kw["window"], kw["softcap"]))
+            return fn(*args, **kw)
+        monkeypatch.setattr(flash_mod, name, wrapped)
+
+    spy("flash_attention_lse", flash_attention_lse)
+    spy("flash_attention_backward", flash_attention_backward)
+    _, (q, k, v, do) = _inputs(1, 2, 1, 256, 64)
+    q.requires_grad_()
+    out = flash_attention(q, k, v, sm_scale=0.1, window=64, softcap=20.0)
+    torch.autograd.grad(out, q, do)
+    assert calls == [("flash_attention_lse", 0.1, 64, 20.0),
+                     ("flash_attention_backward", 0.1, 64, 20.0)]
+
+
+def test_lse_is_the_row_log_sum_exp():
+    """lse = log sum_j exp(s_ij) over the unmasked scores of each row."""
+    _, (q, k, v, _) = _inputs(1, 4, 2, 128, 64)
+    _, lse = flash_attention_lse(q, k, v, sm_scale=0.125, window=32, softcap=20.0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(2, dim=1)) * 0.125
+    s = 20.0 * torch.tanh(s / 20.0)
+    pos = torch.arange(128)
+    ok = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < 32)
+    want = torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1).reshape(4, 128)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 Subprocesses with ``jax`` and ``repro`` made unimportable run the port's
-main path and its reduced serve path on the CPU, and a scan of the port's
-sources finds no import of either.
+main path, its reduced serve path and its reduced training path on the CPU,
+and a scan of the port's sources finds no import of either.
 """
 
 import os
@@ -76,6 +76,42 @@ def test_serve_path_runs_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     assert "served 2 requests / 6 tokens" in proc.stdout
     assert "SERVE_PATH_OK" in proc.stdout
+
+
+_TRAIN_PATH = r'''
+import sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.launch.train import main
+seen = {"backward": 0}
+plain = flash_mod.flash_attention_backward_torch
+
+def counted(*args, **kw):
+    seen["backward"] += 1
+    return plain(*args, **kw)
+
+flash_mod.flash_attention_backward_torch = counted
+with tempfile.TemporaryDirectory() as ckpt:
+    report = main(["--arch", "gemma2-9b", "--reduced", "--device", "cpu", "--steps", "3",
+                   "--batch", "2", "--seq", "24", "--grad-compression", "--ckpt-dir", ckpt])
+assert report.steps_done == 3 and report.restarts == 0, report
+assert seen["backward"] == 3 * 2      # one per layer per step, through the Function
+assert flash_mod.flash_attention.backward_launches == 0   # CPU: the plain version
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("TRAIN_PATH_OK")
+'''
+
+
+def test_train_path_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "done: 3 steps" in proc.stdout
+    assert "TRAIN_PATH_OK" in proc.stdout
 
 
 _SOURCES = sorted(
