@@ -44,30 +44,35 @@ fails (non-zero exit, no result line) if any phase fails:
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
    it), beside its bound and its plain version, and of the CUDA-core kernel
    on the same shape in f32;
-9. the flash backward kernel against its plain version
+9. the flash backward kernels against their plain version
    (``flash_attention_backward_torch``, fed the same q, k, v, output,
    log-sum-exp and d out) and against autograd through
    ``flash_attention_torch``, on every case of phase 6 (the padded one
-   through autograd of ``flash_attention_padded``) and the training shape,
+   through autograd of ``flash_attention_padded``), bf16 and f16 at D 64
+   and 128 with GQA groups 1, 2 and 4, window, softcap, S below one tile
+   and a ragged S, the training shape, and the q, k, v and d out that
+   layers 0 and 27 see in one bf16 training step of phase 10's model;
    within 2e-5 (f32) / 2e-2 (bf16, f16) of each gradient's max |g|; the
-   forward's log-sum-exp against the plain one; each case checks that the
-   backward kernel ran, and that the autograd Function gives the same
-   gradients;
+   forward's log-sum-exp against the plain one; each case checks which
+   backward ran (tensor cores for bf16/f16 at D 64 and 128, CUDA cores
+   otherwise), that the autograd Function gives the same gradients and
+   that the tensor-core backward gives the same bits twice;
 10. training path at full width: qwen3-0.6b (bf16, remat) trains 8 steps
    of batch 4 x 2048 through ``launch.train``'s ``make_state`` /
    ``make_step`` and ``runtime.run_training`` (AdamW at the CLI's
    defaults, a fresh checkpoint directory under ``build/``), then 2 steps
    with gradient compression. No restart, finite losses, the first near
-   ln(vocab), >= 28 forward, tensor-core forward and backward launches per
-   step (counted over this phase alone), and the saved checkpoint restores
-   bit for bit. Reports ms/step, tokens/s, peak memory, the save's time and
-   a profile of one step. Then one f32 step at batch 1 x 2048 through the
-   kernels against the same step with the plain attention versions: loss
-   within 1e-5 (of max(1, |loss|)), each gradient leaf within 1e-3 of its
-   max |g|;
-11. timing of the backward kernel at the training shape in turns with the
-   backward of ``scaled_dot_product_attention`` (a yardstick only), beside
-   its bound and its plain version.
+   ln(vocab), >= 28 forward, tensor-core forward, backward and tensor-core
+   backward launches per step (counted over this phase alone), and the
+   saved checkpoint restores bit for bit. Reports ms/step, tokens/s, peak
+   memory, the save's time and a profile of one step. Then one f32 step at
+   batch 1 x 2048 through the kernels (the CUDA-core backward) against the
+   same step with the plain attention versions: loss within 1e-5 (of
+   max(1, |loss|)), each gradient leaf within 1e-3 of its max |g|;
+11. timing of the tensor-core backward at the training shape in turns with
+   the backward of ``scaled_dot_product_attention`` (a yardstick only),
+   beside its bound, its plain version and the CUDA-core backward on the
+   same shape in f32.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -445,18 +450,25 @@ def phase_flash() -> float:
 
 @contextlib.contextmanager
 def captured_attention(layers: tuple) -> dict:
-    """The serving path with the flash kernel's inputs recorded: the dict
-    maps each call index in ``layers`` (one call per layer in a prefill) to
-    its q, k, v and keywords."""
+    """The model's flash kernel calls recorded: the dict maps each call
+    index in ``layers`` (one call per layer in a forward; remat's
+    recomputes come after) to its q, k, v and keywords and, where the
+    output takes part in a backward, once that has run, its gradient d
+    out."""
     kernel = attention.flash_attention_padded
     seen = {}
     calls = iter(range(10**9))
 
     def record(q, k, v, **kw):
         i = next(calls)
+        out = kernel(q, k, v, **kw)
         if i in layers:
-            seen[i] = (q.clone(), k.clone(), v.clone(), kw)
-        return kernel(q, k, v, **kw)
+            entry = seen[i] = dict(q=q.detach().clone(), k=k.detach().clone(),
+                                   v=v.detach().clone(), kw=kw)
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g, e=entry: e.update(do=g.detach().contiguous().clone()))
+        return out
 
     attention.flash_attention_padded = record
     try:
@@ -613,7 +625,8 @@ def phase_serve() -> int:
         spec.prefill(params, torch.as_tensor(np.stack(queue[:SERVE_BATCH]), device="cuda"),
                      SERVE_CACHE_LEN)
     check(sorted(seen) == list(layers), f"captured layers {sorted(seen)}, not {layers}")
-    for layer, (q, k, v, kw) in sorted(seen.items()):
+    for layer, e in sorted(seen.items()):
+        q, k, v, kw = e["q"], e["k"], e["v"], e["kw"]
         got = flash_attention_padded(q, k, v, **kw)
         want = flash_attention_torch(q, k, v, causal=True, **kw)
         err = float((got.float() - want.float()).abs().max())
@@ -713,11 +726,26 @@ def phase_flash_timing() -> dict:
 def flash_bwd_cases():
     """Phase 6's cases (the JAX flash sweep in f32 and bf16, D 192/256,
     f16, S 48, window 0, the ragged S through the padding path), then the
-    training shape."""
+    tensor-core backward's head dims and options in bf16 and f16 (GQA
+    groups 1, 2 and 4, window, softcap, S below one tile, a ragged S that
+    the kernels see unpadded), then the training shape."""
     for label, shape, dtype, opts in flash_cases():
         if label != "serve shape":
             yield label, shape, dtype, opts
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (64, 128):
+            yield f"GQA 1 D{d}", (2, 4, 4, 256, d), dtype, {}
+            yield f"GQA 2 window 100 D{d}", (1, 8, 4, 384, d), dtype, {"window": 100}
+            yield f"GQA 4 softcap 30 D{d}", (1, 8, 2, 256, d), dtype, {"softcap": 30.0}
+            yield f"S48 window 16 D{d}", (2, 4, 2, 48, d), dtype, {"window": 16}
+            yield f"ragged S200 D{d}", (1, 4, 2, 200, d), dtype, {"ragged": True}
     yield "training shape", TRAIN_SHAPE, torch.bfloat16, {}
+
+
+def tensor_core_bwd_path(dtype, d: int) -> bool:
+    """Whether flash_attention_backward takes the tensor-core kernels (else
+    the CUDA-core ones): bf16/f16 at D 64 and 128."""
+    return dtype != torch.float32 and d in (64, 128)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -734,72 +762,117 @@ def grads_of(fn, q, k, v, do):
     return torch.autograd.grad(out, leaves_, do)
 
 
-def phase_flash_bwd() -> float:
-    """Each case: the backward kernel (through its wrapper) against its
-    plain version on the same q, k, v, output, lse and d out, and against
-    autograd through the plain forward; the autograd Function's gradients
-    equal the wrapper's. Returns the largest |kernel - plain| seen."""
-    worst = 0.0
-    for label, shape, dtype, opts in flash_bwd_cases():
-        opts = dict(opts)
-        padded = opts.pop("padded", False)
-        b, hq, hkv, s_len, d = shape
-        q, k, v = qkv(shape, dtype)
-        do = qkv(shape, dtype, seed=1)[0]
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        kw = dict(sm_scale=d ** -0.5, causal=opts.pop("causal", True), **opts)
-        plain_fwd = lambda a, b_, c: flash_attention_torch(a, b_, c, **kw)  # noqa: E731
-        before = flash_attention.backward_launches
-        if padded:
-            # the padding path through autograd: F.pad, the Function, slicing
-            got = grads_of(lambda a, b_, c: flash_attention_padded(
-                a, b_, c, sm_scale=kw["sm_scale"], window=kw.get("window"),
-                softcap=kw.get("softcap")), q, k, v, do)
-            check(flash_attention.backward_launches == before + 1,
-                  f"flash bwd {label}: the padded path launched the backward "
-                  f"{flash_attention.backward_launches - before} times")
-            o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
-            lse_err = 0.0
-        else:
-            o, lse = flash_attention_lse(q, k, v, **kw)
-            want_o, want_lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
-            live = torch.isfinite(want_lse)
-            check(torch.equal(torch.isfinite(lse), live),
-                  f"flash bwd {label}: lse is -inf on other rows than the plain one's")
-            lse_err = float((lse[live] - want_lse[live]).abs().max()) if live.any() else 0.0
-            check(lse_err <= 1e-3, f"flash bwd {label}: lse off by {lse_err:.3g}")
-            got = flash_attention_backward(q, k, v, o, lse, do, **kw)
-            check(flash_attention.backward_launches == before + 1,
-                  f"flash bwd {label}: the backward kernel did not run")
+def training_activations() -> list:
+    """(label, q, k, v, d out, keywords) of layers 0 and 27 in one bf16
+    training step (loss and gradients) of phase 10's model and batch."""
+    cfg = get_config(TRAIN_ARCH)
+    spec = build_model(cfg)
+    params = spec.init(0, "cuda")
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0, "cuda")
+    layers = (0, cfg.num_layers - 1)
+    with captured_attention(layers) as seen:
+        loss_and_grads(spec, params, batch)
+    check(sorted(seen) == list(layers) and all("do" in e for e in seen.values()),
+          f"captured layers {sorted(seen)} (with d out: "
+          f"{sorted(i for i, e in seen.items() if 'do' in e)}), not {layers}")
+    out = [(f"layer {i} of a bf16 training step", e["q"], e["k"], e["v"], e["do"], e["kw"])
+           for i, e in sorted(seen.items())]
+    del params, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_bwd_case(label: str, q, k, v, do, opts: dict) -> float:
+    """The backward (through its wrapper) against its plain version on the
+    same q, k, v, output, lse and d out, and against autograd through the
+    plain forward; the kernels the wrapper chose; the autograd Function's
+    gradients equal the wrapper's; the tensor-core backward gives the same
+    bits twice. Returns the largest |kernel - plain|."""
+    opts = dict(opts)
+    padded = opts.pop("padded", False)
+    ragged = opts.pop("ragged", False)       # S no block divides: wrappers only
+    dtype, d = q.dtype, q.shape[-1]
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    kw = dict(sm_scale=opts.pop("sm_scale", d ** -0.5), causal=opts.pop("causal", True),
+              **opts)
+    plain_fwd = lambda a, b_, c: flash_attention_torch(a, b_, c, **kw)  # noqa: E731
+    on_tc = tensor_core_bwd_path(dtype, d)
+    before = flash_attention.backward_launches
+    tc_before = flash_attention.tensor_core_backward_launches
+    if padded:
+        # the padding path through autograd: F.pad, the Function, slicing
+        got = grads_of(lambda a, b_, c: flash_attention_padded(
+            a, b_, c, sm_scale=kw["sm_scale"], window=kw.get("window"),
+            softcap=kw.get("softcap")), q, k, v, do)
+        check(flash_attention.backward_launches == before + 1,
+              f"flash bwd {label}: the padded path launched the backward "
+              f"{flash_attention.backward_launches - before} times")
+        o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+        lse_err = 0.0
+        launches = 1
+    else:
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        want_o, want_lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+        live = torch.isfinite(want_lse)
+        check(torch.equal(torch.isfinite(lse), live),
+              f"flash bwd {label}: lse is -inf on other rows than the plain one's")
+        lse_err = float((lse[live] - want_lse[live]).abs().max()) if live.any() else 0.0
+        check(lse_err <= 1e-3, f"flash bwd {label}: lse off by {lse_err:.3g}")
+        got = flash_attention_backward(q, k, v, o, lse, do, **kw)
+        check(flash_attention.backward_launches == before + 1,
+              f"flash bwd {label}: the backward kernel did not run")
+        launches = 1
+        if not ragged:
             fn_grads = grads_of(lambda a, b_, c: flash_attention(a, b_, c, **kw),
                                 q, k, v, do)
+            launches = 2
             check(flash_attention.backward_launches == before + 2,
                   f"flash bwd {label}: the autograd Function did not run the kernel")
             check(all(torch.equal(x, y) for x, y in zip(fn_grads, got)),
                   f"flash bwd {label}: the Function's gradients != the wrapper's")
-        torch.cuda.synchronize()
-        want = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
-        auto = grads_of(plain_fwd, q, k, v, do)
-        errs, auto_errs = [], []
-        for name, g, w, a in zip("qkv", got, want, auto):
-            check(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
-                  f"flash bwd {label}: d{name} {g.dtype} {list(g.shape)} or not finite")
-            errs.append(rel_err(g, w))
-            auto_errs.append(rel_err(g, a))
-        check(max(errs) <= tol, f"flash bwd {label}: kernel != plain version "
-              f"(dq/dk/dv error {', '.join(f'{e:.3g}' for e in errs)} of max |g|, tol {tol})")
-        check(max(auto_errs) <= tol, f"flash bwd {label}: kernel != autograd of the plain "
-              f"forward ({', '.join(f'{e:.3g}' for e in auto_errs)} of max |g|, tol {tol})")
-        if kw.get("window") == 0:
-            check(all(bool((g == 0).all()) for g in got),
-                  f"flash bwd {label}: fully masked rows give non-zero gradients")
-        worst = max(worst, *(float((g.float() - w.float()).abs().max())
-                             for g, w in zip(got, want)))
-        log(f"  ok  {label}: {list(shape)} {str(dtype)[6:]} {opts or ''}"
-            f"{' [padded]' if padded else ''} dq/dk/dv vs plain "
-            f"{'/'.join(f'{e:.2g}' for e in errs)}, vs autograd "
-            f"{'/'.join(f'{e:.2g}' for e in auto_errs)} of max |g| (tol {tol}); "
-            f"lse max |d| {lse_err:.2g}")
+    on = flash_attention.tensor_core_backward_launches - tc_before
+    check(on == launches * on_tc, f"flash bwd {label}: {on} tensor-core backward launches "
+          f"of {launches} for {dtype} D {d}")
+    if on_tc and not padded:
+        again = flash_attention_backward(q, k, v, o, lse, do, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(again, got)),
+              f"flash bwd {label}: two launches of the tensor-core backward differ")
+    torch.cuda.synchronize()
+    want = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
+    auto = grads_of(plain_fwd, q, k, v, do)
+    errs, auto_errs = [], []
+    for name, g, w, a in zip("qkv", got, want, auto):
+        check(g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"flash bwd {label}: d{name} {g.dtype} {list(g.shape)} or not finite")
+        errs.append(rel_err(g, w))
+        auto_errs.append(rel_err(g, a))
+    check(max(errs) <= tol, f"flash bwd {label}: kernel != plain version "
+          f"(dq/dk/dv error {', '.join(f'{e:.3g}' for e in errs)} of max |g|, tol {tol})")
+    check(max(auto_errs) <= tol, f"flash bwd {label}: kernel != autograd of the plain "
+          f"forward ({', '.join(f'{e:.3g}' for e in auto_errs)} of max |g|, tol {tol})")
+    if kw.get("window") == 0:
+        check(all(bool((g == 0).all()) for g in got),
+              f"flash bwd {label}: fully masked rows give non-zero gradients")
+    shape = [*q.shape[:2], k.shape[1], *q.shape[2:]]
+    log(f"  ok  {label}: {shape} {str(dtype)[6:]} {opts or ''}"
+        f"{' [padded]' if padded else ''} [{'tensor cores' if on_tc else 'CUDA cores'}"
+        f"{', same bits twice' if on_tc and not padded else ''}] dq/dk/dv vs plain "
+        f"{'/'.join(f'{e:.2g}' for e in errs)}, vs autograd "
+        f"{'/'.join(f'{e:.2g}' for e in auto_errs)} of max |g| (tol {tol}); "
+        f"lse max |d| {lse_err:.2g}")
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def phase_flash_bwd() -> float:
+    """Every case of flash_bwd_cases on seeded inputs, then layers 0 and 27
+    of a training step. Returns the largest |kernel - plain| seen."""
+    worst = 0.0
+    for label, shape, dtype, opts in flash_bwd_cases():
+        q, k, v = qkv(shape, dtype)
+        do = qkv(shape, dtype, seed=1)[0]
+        worst = max(worst, check_bwd_case(label, q, k, v, do, opts))
+    for label, q, k, v, do, kw in training_activations():
+        worst = max(worst, check_bwd_case(label, q, k, v, do, kw))
     return worst
 
 
@@ -816,11 +889,14 @@ def zero_flash_counts() -> None:
     flash_attention.launches = 0
     flash_attention.tensor_core_launches = 0
     flash_attention.backward_launches = 0
+    flash_attention.tensor_core_backward_launches = 0
 
 
-def flash_counts() -> tuple[int, int, int]:
+def flash_counts() -> tuple[int, int, int, int]:
+    """Forward, tensor-core forward, backward, tensor-core backward launches."""
     return (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.backward_launches)
+            flash_attention.backward_launches,
+            flash_attention.tensor_core_backward_launches)
 
 
 def train_run(spec, opt_cfg, data, steps: int, *, compression: bool) -> dict:
@@ -875,16 +951,16 @@ def train_run(spec, opt_cfg, data, steps: int, *, compression: bool) -> dict:
 
 
 def check_counts(counts, steps: int, layers: int, what: str) -> None:
-    fwd, tc, bwd = counts
+    fwd, tc, bwd, tc_bwd = counts
     need = layers * steps
-    check(fwd >= need and tc >= need and bwd >= need,
-          f"{what}: flash launches forward {fwd}, tensor-core {tc}, backward {bwd}; "
-          f"each must be >= {layers} per step ({need})")
+    check(min(counts) >= need,
+          f"{what}: flash launches forward {fwd}, tensor-core {tc}, backward {bwd}, "
+          f"tensor-core backward {tc_bwd}; each must be >= {layers} per step ({need})")
 
 
 def profile_step(spec, opt_cfg, state, batch) -> None:
     """One training step under torch.profiler: host time, the device's busy
-    share, the top kernels and the flash backward kernel's share."""
+    share, the top kernels, and each flash kernel's time and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,6 +988,9 @@ def profile_step(spec, opt_cfg, state, batch) -> None:
         f"{fwd_us / 1e3:.3f} ms ({fwd_us / busy_us:.1%}); top kernels:")
     for us, count, name in kernels[:8]:
         log(f"    {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{count:<5} {name[:70]}")
+    log("  flash kernels of the step: " + "; ".join(
+        f"{name.split('(')[0].removeprefix('void ')} {us / 1e3:.3f} ms x{count}"
+        for us, count, name in kernels if "flash_" in name))
 
 
 def phase_train() -> int:
@@ -936,14 +1015,15 @@ def phase_train() -> int:
           f"{np.log(cfg.vocab):.4f})")
     ms = statistics.median(times[TRAIN_TIMED_FROM:]) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    fwd, tc, bwd = run["counts"]
+    fwd, tc, bwd, tc_bwd = run["counts"]
     log(f"  {TRAIN_ARCH}: {spec.param_count(run['state']['params']) / 1e6:.1f} M params, "
         f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat; restarts "
         f"{report.restarts}")
     log(f"  losses {', '.join(f'{x:.4f}' for x in report.losses)} (ln vocab "
         f"{np.log(cfg.vocab):.4f})")
     log(f"  flash launches over the run: forward {fwd} ({fwd / TRAIN_STEPS:g} a step), "
-        f"tensor-core {tc}, backward {bwd} ({bwd / TRAIN_STEPS:g} a step)")
+        f"tensor-core {tc}, backward {bwd} ({bwd / TRAIN_STEPS:g} a step), tensor-core "
+        f"backward {tc_bwd}")
     log(f"  step times {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of steps "
         f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS} {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} "
         f"tokens/s; peak device memory {run['peak_gib']:.2f} GiB; checkpoint save at the "
@@ -969,13 +1049,15 @@ def phase_train() -> int:
     batch = SyntheticLM(cfg, 1, TRAIN_SEQ, seed=1).batch_at(0, "cuda")
     zero_flash_counts()
     loss, grads = loss_and_grads(spec32, params32, batch)
-    fwd, tc, bwd = flash_counts()
-    check(bwd == cfg.num_layers and fwd == 2 * cfg.num_layers and tc == 0,
-          f"f32 step: forward {fwd}, tensor-core {tc}, backward {bwd} launches; "
-          f"expected {2 * cfg.num_layers}, 0, {cfg.num_layers}")
+    fwd, tc, bwd, tc_bwd = flash_counts()
+    check((fwd, tc, bwd, tc_bwd) == (2 * cfg.num_layers, 0, cfg.num_layers, 0),
+          f"f32 step: forward {fwd}, tensor-core {tc}, backward {bwd}, tensor-core "
+          f"backward {tc_bwd} launches; expected {2 * cfg.num_layers}, 0, "
+          f"{cfg.num_layers}, 0")
     with plain_attention():
         plain_loss, plain = loss_and_grads(spec32, params32, batch)
-    check(flash_counts() == (fwd, tc, bwd), "the plain-attention step launched a kernel")
+    check(flash_counts() == (fwd, tc, bwd, tc_bwd),
+          "the plain-attention step launched a kernel")
     loss_err = abs(float(loss) - float(plain_loss))
     check(loss_err <= PARITY_LOSS_TOL * max(1.0, abs(float(plain_loss))),
           f"f32 loss {float(loss):.7f} vs plain attention {float(plain_loss):.7f}")
@@ -1009,33 +1091,44 @@ def flash_bwd_bound(shape, itemsize: int) -> tuple[float, str]:
 
 
 def phase_flash_bwd_timing() -> dict:
-    """The backward kernel at the training shape in turns with the backward
-    of ``scaled_dot_product_attention`` through autograd (kernel, sdpa,
-    kernel, sdpa), then its plain version."""
+    """The tensor-core backward at the training shape in turns with the
+    backward of ``scaled_dot_product_attention`` through autograd (kernel,
+    sdpa, kernel, sdpa), then its plain version and the CUDA-core backward
+    on the same shape in f32."""
     q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, seed=2)
     do = qkv(TRAIN_SHAPE, torch.bfloat16, seed=3)[0]
     kw = dict(sm_scale=TRAIN_SHAPE[-1] ** -0.5)
     o, lse = flash_attention_lse(q, k, v, **kw)
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    tc_before = flash_attention.tensor_core_backward_launches
     kernel_ms, library_ms = [], []
     for _ in range(2):
         kernel_ms.append(time_ms(lambda: flash_attention_backward(q, k, v, o, lse, do, **kw),
                                  TIMED_RUNS, BWD_INNER))
         library_ms.append(time_ms(lambda: torch.autograd.grad(
             sdpa_out, (ql, kl, vl), do, retain_graph=True), TIMED_RUNS, BWD_INNER))
+    check(flash_attention.tensor_core_backward_launches - tc_before
+          == 2 * (1 + TIMED_RUNS * BWD_INNER), "the timed backward is not the tensor-core one")
     ms = statistics.median(kernel_ms)
     lib_ms = statistics.median(library_ms)
     plain_ms = time_ms(lambda: flash_attention_backward_torch(q, k, v, o, lse, do, **kw), 3)
     bound_ms, bound_by = flash_bwd_bound(TRAIN_SHAPE, q.element_size())
     b, hq, hkv, s_len, d = TRAIN_SHAPE
     flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
-    log(f"  training shape {list(TRAIN_SHAPE)} bf16 causal, backward kernel: "
+    log(f"  training shape {list(TRAIN_SHAPE)} bf16 causal, tensor-core backward: "
         f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms in turns with the backward of "
         f"scaled_dot_product_attention {', '.join(f'{t:.4f}' for t in library_ms)} ms "
         f"(medians of {TIMED_RUNS} x {BWD_INNER} back to back); plain {plain_ms:.3f} ms; "
         f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3g} FLOP), {bound_ms / ms:.1%} of "
-        f"bound, {flops / ms / 1e9:.1f} TFLOP/s")
+        f"bound, {flops / ms / 1e9:.1f} TFLOP/s of the bound's FLOP, "
+        f"{1.4 * flops / ms / 1e9:.1f} of the 7 products done")
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, lse32 = flash_attention_lse(q32, k32, v32, **kw)
+    f32_ms = time_ms(lambda: flash_attention_backward(q32, k32, v32, o32, lse32, do32, **kw),
+                     3)
+    log(f"  the same shape in f32, CUDA-core backward: {f32_ms:.4f} ms (median of 3; its "
+        f"FLOP over the f32 CUDA-core peak {flops / F32_OPS_PER_S * 1e3:.4f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -1098,7 +1191,7 @@ def main() -> int:
     log(f"[8] flash_attention timing on {smi}")
     flash_row = phase_flash_timing()
 
-    log("[9] flash_attention backward kernel vs its plain version and autograd")
+    log("[9] flash_attention backward kernels vs their plain version and autograd")
     bwd_err = phase_flash_bwd()
 
     log(f"[10] training path: {TRAIN_ARCH} at full width, {TRAIN_STEPS} steps of "

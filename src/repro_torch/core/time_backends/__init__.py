@@ -1,11 +1,10 @@
 """Time-solver backend subsystem (DESIGN.md §4).
 
 The time phase is a pluggable constraint solver behind a small protocol
-(`base.TimeBackend`). This package registers the dependency-free incremental
-CP solver; the Z3 SMT encoding of the JAX package is not ported yet, and
-asking for it raises `BackendUnavailable`. Backends are looked up through the
-registry so `TimeSolver` (core/time_smt.py) can report exactly which engine
-produced a schedule.
+(`base.TimeBackend`): the faithful Z3 SMT encoding when `z3-solver` is
+installed, and a dependency-free incremental CP solver otherwise. Backends are
+looked up through the registry so `TimeSolver` (core/time_smt.py) can report
+exactly which engine produced a schedule.
 """
 
 from .base import (
@@ -16,6 +15,7 @@ from .base import (
     resolve_backend_name,
 )
 from .cp_backend import IncrementalCPBackend
+from .z3_backend import HAVE_Z3, Z3Backend
 
 __all__ = [
     "BackendUnavailable",
@@ -24,4 +24,6 @@ __all__ = [
     "create_backend",
     "resolve_backend_name",
     "IncrementalCPBackend",
+    "Z3Backend",
+    "HAVE_Z3",
 ]

@@ -84,21 +84,13 @@ def register_backend(
         _ALIASES[a] = name
 
 
-#: Backends of the JAX package that this package does not carry yet. Asking
-#: for one raises ``BackendUnavailable``, as asking for z3 does there when
-#: z3 is not installed.
-NOT_PORTED = ("z3",)
-
-
 def resolve_backend_name(name: str) -> str:
     """Canonicalise an alias/auto request to a concrete registered backend."""
-    if name in NOT_PORTED:
-        raise BackendUnavailable(
-            f"time backend {name!r} is not ported to repro_torch yet "
-            "(a later slice of the port, see ROADMAP.md); use 'cp'"
-        )
     if name == "auto":
-        name = "cp"
+        for candidate in ("z3", "cp"):
+            if candidate in _REGISTRY and _REGISTRY[candidate].available():
+                return candidate
+        raise BackendUnavailable("no time backend available")
     name = _ALIASES.get(name, name)
     if name not in _REGISTRY:
         raise ValueError(f"unknown time backend {name!r}")

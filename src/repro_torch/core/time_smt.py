@@ -29,11 +29,10 @@ clauses whenever a time solution admits no monomorphism, which makes the
 overall pipeline complete regardless of mode.
 
 The actual solving is delegated to the backend subsystem
-(core/time_backends/): "cp" (alias "python") is the dependency-free
-incremental CP engine, and "auto" resolves to it. The z3 SMT encoding is not
-ported yet: asking for it raises ``BackendUnavailable``.
-``TimeSolver.stats.backend`` always reports the concrete backend that ran —
-never the alias that was asked for.
+(core/time_backends/): "z3" is the paper-faithful SMT encoding, "cp" (alias
+"python") the dependency-free incremental CP engine, "auto" picks z3 when
+importable. ``TimeSolver.stats.backend`` always reports the concrete backend
+that ran — never the alias that was asked for.
 """
 
 from __future__ import annotations
@@ -52,6 +51,7 @@ from .time_backends import (
     resolve_backend_name,
 )
 from .time_backends.base import residue_window
+from .time_backends.z3_backend import HAVE_Z3  # re-exported for callers/tests
 
 __all__ = [
     "TimeSolution",
@@ -59,6 +59,7 @@ __all__ = [
     "TimeSolverStats",
     "check_time_solution",
     "available_backends",
+    "HAVE_Z3",
 ]
 
 

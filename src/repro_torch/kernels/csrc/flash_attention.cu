@@ -89,7 +89,6 @@
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "hopper.cuh"
 
@@ -380,6 +379,7 @@ namespace tc {
 using hopper::fence_regs;
 using hopper::mbar_arrive;
 using hopper::mbar_wait;
+using hopper::PANEL_COLS;
 using hopper::smem_addr;
 using hopper::sw128_desc;
 
@@ -393,7 +393,6 @@ constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 2;                 // slots of the K ring and of the V ring
-constexpr int PANEL_COLS = 64;            // 16-bit columns of one 128-byte box
 constexpr float NEG_INF = -1e30f;         // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -747,75 +746,20 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tmap_q,
 
 // ----------------------------------------------------------------- host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes of the C interface beyond cudaError_t's range.
-constexpr int ERR_NO_ENCODER = 100000;      // driver has no cuTensorMapEncodeTiled
-constexpr int ERR_ENCODE = 100001;          // + CUresult of a refused encoding
-
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return ERR_NO_ENCODER;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// [heads, S, D] of 16-bit values, boxes of 64 columns x `rows` rows x 1
-// head, 128-byte swizzle, zeros outside.
-int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-             CUtensorMapDataType type, int heads, int S, int D, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {PANEL_COLS, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = encode(map, type, 3, const_cast<void*>(ptr), dims, strides,
-                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
-}
-
-template <typename T> constexpr CUtensorMapDataType map_type();
-template <> constexpr CUtensorMapDataType map_type<__nv_bfloat16>() {
-  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-template <> constexpr CUtensorMapDataType map_type<__half>() {
-  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-}
-
 template <typename T, int D>
 int launch_typed(const void* q, const void* k, const void* v, void* o, float* lse,
                  int B, int Hq, int Hkv, int S, float scale, int causal,
                  int has_window, int window, int has_cap, float cap,
                  cudaStream_t stream) {
   using C = Tiles<D>;
-  EncodeTiled encode;
-  int err = encoder(&encode);
+  hopper::EncodeTiled encode;
+  int err = hopper::encoder(&encode);
   if (err != 0) return err;
+  constexpr CUtensorMapDataType type = hopper::map_type<T>();
   CUtensorMap tmap_q, tmap_k, tmap_v;
-  if ((err = make_map(encode, &tmap_q, q, map_type<T>(), B * Hq, S, D, BQ)) != 0 ||
-      (err = make_map(encode, &tmap_k, k, map_type<T>(), B * Hkv, S, D, C::BKV)) != 0 ||
-      (err = make_map(encode, &tmap_v, v, map_type<T>(), B * Hkv, S, D, C::BKV)) != 0) {
+  if ((err = hopper::make_map(encode, &tmap_q, q, type, B * Hq, S, D, BQ)) != 0 ||
+      (err = hopper::make_map(encode, &tmap_k, k, type, B * Hkv, S, D, C::BKV)) != 0 ||
+      (err = hopper::make_map(encode, &tmap_v, v, type, B * Hkv, S, D, C::BKV)) != 0) {
     return err;
   }
   auto kernel = flash_fwd_tc<T, D>;
@@ -902,17 +846,6 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-const char* flash_attention_error_string(int code) {
-  static char buf[96];
-  if (code == tc::ERR_NO_ENCODER) {
-    return "the driver has no cuTensorMapEncodeTiled";
-  }
-  if (code >= tc::ERR_ENCODE) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
-             code - tc::ERR_ENCODE);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_error_string(int code) { return hopper::error_string(code); }
 
 }  // extern "C"

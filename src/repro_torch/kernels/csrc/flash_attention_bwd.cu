@@ -1,5 +1,6 @@
 // Backward flash attention for the GPU: dQ, dK and dV of flash_attention.cu's
-// forward, in three hand-written kernels behind one C entry point.
+// forward, in two sets of three hand-written kernels (tensor cores, CUDA
+// cores) behind one C entry point.
 //
 // The JAX package trains through jax.value_and_grad of its attention; its
 // Pallas kernel (src/repro/kernels/flash_attention.py::_flash_kernel) has no
@@ -19,35 +20,83 @@
 //
 // What bounds it on an H100: five products of the forward's size, 2.5x its
 // FLOPs (1.72e11 at B 4, Hq 16, Hkv 8, S 2048, D 128, causal) against
-// ~240 MB of inputs and outputs in bf16, so operations. This first kernel
-// runs them on CUDA cores with f32 FMAs (plus two recomputed products in the
-// dQ kernel), far from the bf16 tensor-core bound; moving them to wgmma is
-// the next step (ROADMAP queue 2). What its design does now:
+// ~240 MB of inputs and outputs in bf16, so operations: the products belong
+// on the bf16 tensor cores (989 TFLOP/s dense).
 //
-// 1. flash_bwd_delta: D_i, one warp per row.
-// 2. flash_bwd_dkdv: one block per (batch * kv head, 64 kv rows). K and V
-//    of its rows stay in shared memory in f32; the block loops over the q
-//    heads of the group and, for each, over the 32-row query tiles the
-//    masks leave non-empty (causal: from the block's first key on; window:
-//    up to its last key + window - 1). Each warp owns 8 kv rows, each lane
-//    one query of the tile: P^T and dS^T go through a per-warp strip of
-//    shared memory into dV += P^T dO and dK += dS^T Q, accumulated in
-//    registers. The group's sum stays inside the block: no atomics.
-// 3. flash_bwd_dq: one block per (batch * q head, 64 query rows), heaviest
-//    first, looping over the 32-key tiles the forward would visit (causal
-//    upper bound, window lower bound): each warp owns 8 query rows, each
-//    lane one key; dQ += dS K in registers.
-// Every element is masked (and rows past S zeroed) in every tile, so the
-// skipped ranges only save work.
+// 1. Tensor-core kernels: bf16 and f16 at D 64 and 128 (flash_attention_
+//    bwd_uses_tensor_cores). Two passes, deterministic, no atomics; the
+//    design does 7 products of 2 D FLOP a (q, k) pair where the bound
+//    counts 5, the price of an exact dQ without an f32 scratch.
+//    * flash_bwd_prep: one warp a row of [B * Hq, S_pad] (S rounded up to
+//      64): D_i, and lse * log2 e with +inf for a fully masked row and for
+//      rows past S, so that P = exp2(c log2 e - lse2) is 0 there with no
+//      test. Both go to a padded workspace that 256-byte bulk copies read.
+//    * flash_bwd_dkdv_tc: one block per (batch * kv head, 128 kv rows),
+//      kv blocks heaviest first. A producer warpgroup (setmaxnreg 24) whose
+//      first thread issues every load, and two consumer warpgroups of 64 kv
+//      rows each (240). K and V of the block's rows arrive once by TMA; Q
+//      and dO tiles of 64 query rows, with their 64 lse2 and D values (bulk
+//      copies), stream through a 2-stage ring with full/empty mbarriers,
+//      over every q head of the group and the q tiles the masks leave
+//      non-empty for the block. Per tile a consumer runs
+//        S^T = K Q^T and dP^T = V dO^T   (wgmma_ss, m64n64, K-major both),
+//        P^T and dS^T in registers       (lse2 and D by the fragment's column),
+//        dV += P^T dO and dK += dS^T Q   (wgmma_rs, m64nD, dO and Q MN-major),
+//      P^T and dS^T going from the f32 accumulator fragment to the 16-bit A
+//      fragment pair by pair, as flash_attention.cu feeds P V. The GQA sum
+//      stays in the f32 dK and dV accumulators (64 + 64 registers a thread
+//      at D 128). Tiles empty for a warpgroup's rows are only waited for
+//      and released; only tiles that cross the diagonal, the window edge or
+//      S mask per element. Shared memory at D 128: K and V 64 KB, the ring
+//      2 x (16 + 16) KB, the rows 2 KB.
+//    * flash_bwd_dq_tc: one block per (batch * q head, 128 query rows),
+//      shaped like flash_fwd_tc: Q and dO arrive once, K and V tiles of 64
+//      keys stream through the ring; per tile S = Q K^T and dP = dO V^T
+//      (wgmma_ss), P and dS in registers (lse2 and D by row), dQ += dS K
+//      (wgmma_rs, K MN-major as the forward reads V).
+//    * Numerics: P^T and dS^T (dS) are rounded to the input type before
+//      their products, the one departure from the plain version, which
+//      keeps them in f32; every sum stays f32 (tests/test_torch_flash_grad.py
+//      holds a rounded copy of the algorithm against the JAX reference).
+//    * Per tile, the two products that read a ring slot are issued as one
+//      group and waited for before the elementwise work; the other consumer
+//      warpgroup's products fill the tensor cores meanwhile.
+//
+// 2. CUDA-core kernels: f32 at every D, and bf16/f16 at D 32, 96, 160, 192,
+//    224 and 256 (at D 192 and 256 the f32 dK and dV accumulators of 64
+//    rows would need 192-256 registers a thread beside S and dP). Both
+//    products of a pair run as f32 FMAs, with FlashAttention-2's split:
+//    a. flash_bwd_delta: D_i, one warp per row.
+//    b. flash_bwd_dkdv: one block per (batch * kv head, 64 kv rows). K and V
+//       of its rows stay in shared memory in f32; the block loops over the
+//       q heads of the group and, for each, over the 32-row query tiles the
+//       masks leave non-empty (causal: from the block's first key on;
+//       window: up to its last key + window - 1). Each warp owns 8 kv rows,
+//       each lane one query of the tile: P^T and dS^T go through a per-warp
+//       strip of shared memory into dV += P^T dO and dK += dS^T Q,
+//       accumulated in registers. The group's sum stays inside the block.
+//    c. flash_bwd_dq: one block per (batch * q head, 64 query rows),
+//       heaviest first, looping over the 32-key tiles the forward would
+//       visit (causal upper bound, window lower bound): each warp owns 8
+//       query rows, each lane one key; dQ += dS K in registers.
+//    Every element is masked (and rows past S zeroed) in every tile, so the
+//    skipped ranges only save work.
+//
+// Which kernels run depends only on dtype and D; a failed launch or
+// tensor-map encoding is returned as an error code, never replaced by the
+// other kernels.
 //
 // Plain C interface, loaded with ctypes (kernels/_build.py): no PyTorch
-// headers. Errors come back as a cudaError_t, never as a fallback.
+// headers.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,6 +163,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
+
+// A compile-time bool passed as a value (a variant of a generic lambda).
+template <bool B> struct Flag { static constexpr bool value = B; };
 
 // Options of one launch, shared by the kernels.
 struct Opts {
@@ -503,18 +555,647 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+namespace tcb {
+
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_wait;
+using hopper::PANEL_COLS;
+using hopper::smem_addr;
+using hopper::sw128_desc;
+
+constexpr int WG_ROWS = 64;                     // owned rows per consumer warpgroup
+constexpr int CONSUMERS = 2;                    // consumer warpgroups
+constexpr int OWN = CONSUMERS * WG_ROWS;        // rows a block owns (kv, or query)
+constexpr int TILE = 64;                        // rows of a streamed tile
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+// Registers a thread after setmaxnreg, as in flash_fwd_tc: 128 x 24 + 256 x
+// 240 = 384 x 168, the block's 65536.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 2;                       // slots of the ring
+constexpr int PREP_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// S rounded up to whole streamed tiles: the row length of the workspace
+__host__ __device__ __forceinline__ int padded(int S) { return (S + TILE - 1) / TILE * TILE; }
+
+template <int D>
+struct Tiles {
+  static_assert(D == 64 || D == 128, "D is 64 or 128");
+  static constexpr int PANELS = D / PANEL_COLS;
+  static constexpr int OWN_BYTES = OWN * D * 2;     // one owned tile
+  static constexpr int TILE_BYTES = TILE * D * 2;   // one streamed tile
+  static constexpr int ROW_BYTES = TILE * 4;        // a streamed tile's lse2 or D
+  // two owned tiles, then per slot two streamed tiles and their rows; + 1024:
+  // the dynamic buffer is aligned up to the swizzle period
+  static constexpr int RING = STAGES * 2 * TILE_BYTES;
+  static constexpr int SMEM = 2 * OWN_BYTES + RING + STAGES * 2 * ROW_BYTES + 1024;
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+};
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// lse2 and D of every row of [B * Hq, S_pad], one warp a row.
+template <typename T, int NC>
+__global__ void __launch_bounds__(PREP_WARPS * 32)
+flash_bwd_prep(const T* __restrict__ o, const T* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ lse2,
+               float* __restrict__ delta, int S, int rows) {
+  constexpr int D = NC * 32;
+  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;                 // whole warps leave together
+  const int S_pad = padded(S);
+  const int qp = row % S_pad;
+  float acc = 0.f, l2 = INFINITY;
+  if (qp < S) {
+    const size_t src = static_cast<size_t>(row / S_pad) * S + qp;
+    const T* orow = o + src * D;
+    const T* drow = dout + src * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc = fmaf(to_f32(orow[lane + 32 * c]), to_f32(drow[lane + 32 * c]), acc);
+    }
+    acc = warp_sum(acc);
+    const float l = lse[src];
+    l2 = l > -INFINITY ? l * LOG2E : INFINITY;
+  }
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = l2;
+  }
+}
+
+// P and dS of one accumulator element: s the raw dot product, dp the other
+// product's element, lse2 and dl its query row's values; `ok` false masks.
+template <bool CAP>
+__device__ __forceinline__ void p_and_ds(float& s, float& dp, float lse2, float dl, bool ok,
+                                         float scale_log2, float scale_cap, float cap_log2) {
+  float x, f = 1.f;
+  if (CAP) {
+    const float t = tanhf(s * scale_cap);   // c / cap
+    x = t * cap_log2;
+    f = 1.f - t * t;
+  } else {
+    x = s * scale_log2;
+  }
+  const float p = ok ? exp2f(x - lse2) : 0.f;
+  float ds = p * (dp - dl);
+  if (CAP) ds *= f;
+  s = p;
+  dp = ds;
+}
+
+// Packs an accumulator of N / 2 registers into the 16-bit A fragments of
+// N / 16 k steps: registers 8 kk .. 8 kk + 7 are step kk's, two at a time.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) a[kk][h] = pack2<T>(x[8 * kk + 2 * h], x[8 * kk + 2 * h + 1]);
+  }
+}
+
+// D[64 x 64] (=) A B^T over D / 16 k steps: A 64 rows at a_addr in panels
+// a_panel bytes apart, B 64 rows at b_addr in panels b_panel apart, both
+// K-major, 128-byte swizzled. Issued, not committed.
+template <typename T, int D>
+__device__ __forceinline__ void issue_ss(float (&d)[TILE / 2], uint32_t a_addr, int a_panel,
+                                         uint32_t b_addr, int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes
+    hopper::wgmma_ss<T, TILE>(d, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
+                              sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024),
+                              kk > 0);
+  }
+}
+
+// D[64 x D] += A B over TILE / 16 k steps: A fragments in registers, B
+// [TILE rows x D] MN-major at b_addr (a TILE-row tile: panels TILE * 128
+// bytes apart). Issued, not committed.
+template <typename T, int D>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[TILE / 16][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    hopper::wgmma_rs<T, D>(d, a[kk], sw128_desc(b_addr + kk * 16 * 128, TILE * 128, 1024));
+  }
+}
+
+// Stores rows row0 and row0 + 8 (those below S) of a 64 x D accumulator,
+// times `mul`, into a [S, D] head at column col + 8 j + (e % 2).
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], T* __restrict__ head,
+                                           int row0, int col, int S, float mul) {
+  T* out0 = head + static_cast<size_t>(row0) * D + col;
+  T* out1 = out0 + 8 * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < S) {
+      *reinterpret_cast<uint32_t*>(out0 + 8 * j) =
+          pack2<T>(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    }
+    if (row0 + 8 < S) {
+      *reinterpret_cast<uint32_t*>(out1 + 8 * j) =
+          pack2<T>(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+  }
+}
+
+// One consumer warpgroup of flash_bwd_dkdv_tc: its 64 kv rows' dK and dV
+// over the ring's tiles, then the epilogue. Fragment layout of a wgmma
+// m64nN f32 accumulator, thread t of the warpgroup (warp w = t / 32, lane
+// l): register 4 j + e holds row 16 w + l / 4 + 8 (e / 2) and column 8 j +
+// 2 (l % 4) + (e % 2); here rows are kv rows and columns the tile's queries.
+template <typename T, int D>
+__device__ __forceinline__ void dkdv_consume(
+    unsigned char* sK, unsigned char* sV, unsigned char* sRing, const float* sRows,
+    uint64_t* kv_full, uint64_t* full, uint64_t* empty, T* __restrict__ dk,
+    T* __restrict__ dv, int bkv, int k0, int t_lo, int n_t, int n_tiles, int warp,
+    const Opts& o) {
+  using C = Tiles<D>;
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int kw0 = k0 + wg * WG_ROWS;                  // the warpgroup's kv rows
+  const int row0 = kw0 + 16 * (warp % 4) + lane / 4;  // this thread's: row0, row0 + 8
+  const int col = 2 * (lane % 4);                     // + 8 j + (e % 2)
+  const float scale_log2 = o.scale * LOG2E;
+  const float scale_cap = o.has_cap ? o.scale / o.cap : 0.f;
+  const float cap_log2 = o.cap * LOG2E;
+
+  float acc_k[D / 2], acc_v[D / 2], s[TILE / 2], dp[TILE / 2];
+  uint32_t pa[TILE / 16][4], da[TILE / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) s[i] = dp[i] = 0.f;
+
+  const uint32_t k_addr = smem_addr(sK) + wg * WG_ROWS * 128;
+  const uint32_t v_addr = smem_addr(sV) + wg * WG_ROWS * 128;
+  // every pair of the tile and these rows masked, or the rows all past S
+  auto idle = [&](int q0) {
+    return kw0 >= o.S || (o.causal && q0 + TILE - 1 < kw0) ||
+           (o.has_window && q0 - (kw0 + WG_ROWS - 1) >= o.window);
+  };
+  // some pair of the tile and these rows masked
+  auto edge = [&](int q0) {
+    return q0 + TILE > o.S || kw0 + WG_ROWS > o.S || (o.causal && kw0 + WG_ROWS - 1 > q0) ||
+           (o.has_window && q0 + TILE - 1 - kw0 >= o.window);
+  };
+  // P^T, dS^T in place of S^T, dP^T; lse2 and D by column (the query)
+  auto grads = [&](int q0, const float* sL, const float* sD, auto cap, auto mask) {
+    constexpr bool CAP = decltype(cap)::value;
+    constexpr bool MASK = decltype(mask)::value;
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + col);
+      const float2 dl = *reinterpret_cast<const float2*>(sD + 8 * j + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + 8 * j + col + (e & 1);
+        const int kv = row0 + 8 * (e >> 1);
+        bool ok = true;
+        if (MASK) {
+          ok = q < o.S && kv < o.S;
+          if (o.causal) ok = ok && kv <= q;
+          if (o.has_window) ok = ok && q - kv < o.window;
+        }
+        p_and_ds<CAP>(s[4 * j + e], dp[4 * j + e], (e & 1) ? l2.y : l2.x,
+                      (e & 1) ? dl.y : dl.x, ok, scale_log2, scale_cap, cap_log2);
+      }
+    }
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    const int q0 = (t_lo + i % n_t) * TILE;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    if (!idle(q0)) {
+      const uint32_t q_addr = smem_addr(sRing + st * 2 * C::TILE_BYTES);
+      const uint32_t do_addr = q_addr + C::TILE_BYTES;
+      const float* sL = sRows + st * 2 * TILE;
+      // S^T = K Q^T, dP^T = V dO^T
+      fence_regs(s);
+      fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_ss<T, D>(s, k_addr, OWN * 128, q_addr, TILE * 128);
+      issue_ss<T, D>(dp, v_addr, OWN * 128, do_addr, TILE * 128);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (edge(q0)) {
+        if (o.has_cap) grads(q0, sL, sL + TILE, Flag<true>{}, Flag<true>{});
+        else grads(q0, sL, sL + TILE, Flag<false>{}, Flag<true>{});
+      } else if (o.has_cap) {
+        grads(q0, sL, sL + TILE, Flag<true>{}, Flag<false>{});
+      } else {
+        grads(q0, sL, sL + TILE, Flag<false>{}, Flag<false>{});
+      }
+      pack_a<T, TILE>(s, pa);
+      pack_a<T, TILE>(dp, da);
+      // dV += P^T dO, dK += dS^T Q
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      hopper::wgmma_fence();
+      issue_rs<T, D>(acc_v, pa, do_addr);
+      issue_rs<T, D>(acc_k, da, q_addr);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  const size_t head = static_cast<size_t>(bkv) * o.S * D;
+  store_rows<T, D>(acc_k, dk + head, row0, col, o.S, o.scale);
+  store_rows<T, D>(acc_v, dv + head, row0, col, o.S, 1.f);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
+                  const __grid_constant__ CUtensorMap tmap_do,
+                  const __grid_constant__ CUtensorMap tmap_k,
+                  const __grid_constant__ CUtensorMap tmap_v,
+                  const float* __restrict__ lse2, const float* __restrict__ delta,
+                  T* __restrict__ dk, T* __restrict__ dv, Opts o) {
+  using C = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+
+  // K, V: PANELS panels of OWN rows x 128 B; the ring: per slot a Q and a
+  // dO tile of PANELS panels of TILE rows; then per slot TILE lse2 and TILE
+  // D values. Every panel starts on a 1024-byte boundary.
+  unsigned char* sK = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + C::OWN_BYTES;
+  unsigned char* sRing = sV + C::OWN_BYTES;
+  float* sRows = reinterpret_cast<float*>(sRing + C::RING);
+
+  const int S = o.S;
+  const int bkv = blockIdx.x;                   // b * Hkv + kv head
+  const int k0 = blockIdx.y * OWN;              // heaviest first under the causal mask
+  const int hkv = o.Hq / o.group;
+  const int bh0 = (bkv / hkv) * o.Hq + (bkv % hkv) * o.group;   // the group's first q head
+
+  // q tiles [t_lo, t_lo + n_t) that may see a key of the block, for each of
+  // the group's q heads: tile i is head bh0 + i / n_t, tile t_lo + i % n_t
+  const int k_last = min(k0 + OWN, S) - 1;
+  const int t_lo = o.causal ? k0 / TILE : 0;
+  int t_hi = (S + TILE - 1) / TILE;
+  if (o.has_window) {
+    const int q_last = k_last + o.window - 1;   // q - k < window
+    t_hi = q_last < 0 ? 0 : min(t_hi, q_last / TILE + 1);
+  }
+  const int n_t = max(t_hi - t_lo, 0);
+  const int n_tiles = o.group * n_t;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], CONSUMERS * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMERS * 4) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_arrive_expect_tx(&kv_full, 2 * C::OWN_BYTES);
+      for (int p = 0; p < C::PANELS; ++p) {
+        hopper::tma_load_3d(sK + p * OWN * 128, &tmap_k, &kv_full, p * PANEL_COLS, k0, bkv);
+        hopper::tma_load_3d(sV + p * OWN * 128, &tmap_v, &kv_full, p * PANEL_COLS, k0, bkv);
+      }
+      const int S_pad = padded(S);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const int bh = bh0 + i / n_t;
+        const int q0 = (t_lo + i % n_t) * TILE;
+        unsigned char* sQ = sRing + st * 2 * C::TILE_BYTES;
+        float* sL = sRows + st * 2 * TILE;
+        // the first pass over the ring finds every slot free
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * C::TILE_BYTES + 2 * C::ROW_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          hopper::tma_load_3d(sQ + p * TILE * 128, &tmap_q, &full[st], p * PANEL_COLS, q0, bh);
+          hopper::tma_load_3d(sQ + C::TILE_BYTES + p * TILE * 128, &tmap_do, &full[st],
+                              p * PANEL_COLS, q0, bh);
+        }
+        const size_t row = static_cast<size_t>(bh) * S_pad + q0;
+        hopper::bulk_load(sL, lse2 + row, C::ROW_BYTES, &full[st]);
+        hopper::bulk_load(sL + TILE, delta + row, C::ROW_BYTES, &full[st]);
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    dkdv_consume<T, D>(sK, sV, sRing, sRows, &kv_full, full, empty, dk, dv, bkv, k0, t_lo,
+                       n_t, n_tiles, warp, o);
+  }
+}
+
+// One consumer warpgroup of flash_bwd_dq_tc: its 64 query rows' dQ over the
+// ring's kv tiles, then the epilogue (the accumulator layout above; rows
+// are queries and columns the tile's keys).
+template <typename T, int D>
+__device__ __forceinline__ void dq_consume(
+    unsigned char* sQ, unsigned char* sDO, unsigned char* sRing, uint64_t* q_full,
+    uint64_t* full, uint64_t* empty, const float* __restrict__ lse2,
+    const float* __restrict__ delta, T* __restrict__ dq, int bh, int q0, int kv_lo,
+    int n_tiles, int warp, const Opts& o) {
+  using C = Tiles<D>;
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int qw0 = q0 + wg * WG_ROWS;                  // the warpgroup's query rows
+  const int row0 = qw0 + 16 * (warp % 4) + lane / 4;  // this thread's: row0, row0 + 8
+  const int col = 2 * (lane % 4);                     // + 8 j + (e % 2)
+  const float scale_log2 = o.scale * LOG2E;
+  const float scale_cap = o.has_cap ? o.scale / o.cap : 0.f;
+  const float cap_log2 = o.cap * LOG2E;
+
+  // the rows' lse2 and D (rows past S: +inf and 0, as the workspace's pad)
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t at = static_cast<size_t>(bh) * padded(o.S) + row;
+    l2[r] = row < o.S ? lse2[at] : INFINITY;
+    dl[r] = row < o.S ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2], s[TILE / 2], dp[TILE / 2];
+  uint32_t da[TILE / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TILE / 2; ++i) s[i] = dp[i] = 0.f;
+
+  const uint32_t q_addr = smem_addr(sQ) + wg * WG_ROWS * 128;
+  const uint32_t do_addr = smem_addr(sDO) + wg * WG_ROWS * 128;
+  auto idle = [&](int kv0) {
+    return qw0 >= o.S || (o.causal && kv0 > qw0 + WG_ROWS - 1) ||
+           (o.has_window && qw0 - (kv0 + TILE - 1) >= o.window);
+  };
+  auto edge = [&](int kv0) {
+    return kv0 + TILE > o.S || qw0 + WG_ROWS > o.S || (o.causal && kv0 + TILE - 1 > qw0) ||
+           (o.has_window && qw0 + WG_ROWS - 1 - kv0 >= o.window);
+  };
+  // P, dS in place of S, dP; lse2 and D by row (the query)
+  auto grads = [&](int kv0, auto cap, auto mask) {
+    constexpr bool CAP = decltype(cap)::value;
+    constexpr bool MASK = decltype(mask)::value;
+#pragma unroll
+    for (int idx = 0; idx < TILE / 2; ++idx) {
+      const int r = (idx >> 1) & 1;
+      bool ok = true;
+      if (MASK) {
+        const int key = kv0 + 8 * (idx >> 2) + col + (idx & 1);
+        const int row = row0 + 8 * r;
+        ok = key < o.S && row < o.S;
+        if (o.causal) ok = ok && key <= row;
+        if (o.has_window) ok = ok && row - key < o.window;
+      }
+      p_and_ds<CAP>(s[idx], dp[idx], l2[r], dl[r], ok, scale_log2, scale_cap, cap_log2);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    const int kv0 = (kv_lo + i) * TILE;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    if (!idle(kv0)) {
+      const uint32_t k_addr = smem_addr(sRing + st * 2 * C::TILE_BYTES);
+      const uint32_t v_addr = k_addr + C::TILE_BYTES;
+      // S = Q K^T, dP = dO V^T
+      fence_regs(s);
+      fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_ss<T, D>(s, q_addr, OWN * 128, k_addr, TILE * 128);
+      issue_ss<T, D>(dp, do_addr, OWN * 128, v_addr, TILE * 128);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (edge(kv0)) {
+        if (o.has_cap) grads(kv0, Flag<true>{}, Flag<true>{});
+        else grads(kv0, Flag<false>{}, Flag<true>{});
+      } else if (o.has_cap) {
+        grads(kv0, Flag<true>{}, Flag<false>{});
+      } else {
+        grads(kv0, Flag<false>{}, Flag<false>{});
+      }
+      pack_a<T, TILE>(dp, da);
+      // dQ += dS K
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) fence_regs(da[kk]);
+      hopper::wgmma_fence();
+      issue_rs<T, D>(acc, da, k_addr);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) fence_regs(da[kk]);
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  store_rows<T, D>(acc, dq + static_cast<size_t>(bh) * o.S * D, row0, col, o.S, o.scale);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
+                const __grid_constant__ CUtensorMap tmap_do,
+                const __grid_constant__ CUtensorMap tmap_k,
+                const __grid_constant__ CUtensorMap tmap_v,
+                const float* __restrict__ lse2, const float* __restrict__ delta,
+                T* __restrict__ dq, Opts o) {
+  using C = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+
+  // Q, dO: PANELS panels of OWN rows x 128 B; the ring: per slot a K and a
+  // V tile of PANELS panels of TILE rows.
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sDO = sQ + C::OWN_BYTES;
+  unsigned char* sRing = sDO + C::OWN_BYTES;
+
+  const int S = o.S;
+  const int bh = blockIdx.x;                             // b * Hq + h
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * OWN;     // heaviest first
+  const int hkv = o.Hq / o.group;
+  const int kv_head = (bh / o.Hq) * hkv + (bh % o.Hq) / o.group;
+
+  // kv tiles [kv_lo, kv_lo + n_tiles) that hold a key some row may see
+  const int q_last = min(q0 + OWN, S) - 1;
+  int kv_lo = 0;
+  int kv_hi = (S + TILE - 1) / TILE;
+  if (o.causal) kv_hi = q_last / TILE + 1;
+  if (o.has_window && q0 - o.window + 1 > 0) kv_lo = (q0 - o.window + 1) / TILE;
+  const int n_tiles = max(kv_hi - kv_lo, 0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], CONSUMERS * 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMERS * 4) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_arrive_expect_tx(&q_full, 2 * C::OWN_BYTES);
+      for (int p = 0; p < C::PANELS; ++p) {
+        hopper::tma_load_3d(sQ + p * OWN * 128, &tmap_q, &q_full, p * PANEL_COLS, q0, bh);
+        hopper::tma_load_3d(sDO + p * OWN * 128, &tmap_do, &q_full, p * PANEL_COLS, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const int kv0 = (kv_lo + i) * TILE;
+        unsigned char* sK = sRing + st * 2 * C::TILE_BYTES;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * C::TILE_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          hopper::tma_load_3d(sK + p * TILE * 128, &tmap_k, &full[st], p * PANEL_COLS, kv0,
+                              kv_head);
+          hopper::tma_load_3d(sK + C::TILE_BYTES + p * TILE * 128, &tmap_v, &full[st],
+                              p * PANEL_COLS, kv0, kv_head);
+        }
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    dq_consume<T, D>(sQ, sDO, sRing, &q_full, full, empty, lse2, delta, dq, bh, q0, kv_lo,
+                     n_tiles, warp, o);
+  }
+}
+
+// ----------------------------------------------------------------- host
+
+template <typename T, int D>
+int launch_typed(const void* q, const void* k, const void* v, const void* out,
+                 const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                 float* work, int B, int Hkv, const Opts& o, cudaStream_t stream) {
+  using C = Tiles<D>;
+  const int S = o.S;
+  const int rows = B * o.Hq * padded(S);
+  float* lse2 = work;
+  float* delta = work + rows;
+
+  hopper::EncodeTiled encode;
+  int err = hopper::encoder(&encode);
+  if (err != 0) return err;
+  constexpr CUtensorMapDataType type = hopper::map_type<T>();
+  // maps with boxes of the owned rows (OWN) and of the streamed tiles (TILE)
+  CUtensorMap q_own, do_own, k_tile, v_tile, q_tile, do_tile, k_own, v_own;
+  if ((err = hopper::make_map(encode, &q_own, q, type, B * o.Hq, S, D, OWN)) != 0 ||
+      (err = hopper::make_map(encode, &do_own, dout, type, B * o.Hq, S, D, OWN)) != 0 ||
+      (err = hopper::make_map(encode, &k_tile, k, type, B * Hkv, S, D, TILE)) != 0 ||
+      (err = hopper::make_map(encode, &v_tile, v, type, B * Hkv, S, D, TILE)) != 0 ||
+      (err = hopper::make_map(encode, &q_tile, q, type, B * o.Hq, S, D, TILE)) != 0 ||
+      (err = hopper::make_map(encode, &do_tile, dout, type, B * o.Hq, S, D, TILE)) != 0 ||
+      (err = hopper::make_map(encode, &k_own, k, type, B * Hkv, S, D, OWN)) != 0 ||
+      (err = hopper::make_map(encode, &v_own, v, type, B * Hkv, S, D, OWN)) != 0) {
+    return err;
+  }
+  cudaError_t cerr = cudaFuncSetAttribute(flash_bwd_dq_tc<T, D>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  cerr = cudaFuncSetAttribute(flash_bwd_dkdv_tc<T, D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+
+  flash_bwd_prep<T, D / 32><<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0,
+                              stream>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
+                                        lse, lse2, delta, S, rows);
+  if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
+
+  const int blocks = (S + OWN - 1) / OWN;
+  flash_bwd_dq_tc<T, D><<<dim3(B * o.Hq, blocks), THREADS, C::SMEM, stream>>>(
+      q_own, do_own, k_tile, v_tile, lse2, delta, static_cast<T*>(dq), o);
+  if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
+
+  flash_bwd_dkdv_tc<T, D><<<dim3(B * Hkv, blocks), THREADS, C::SMEM, stream>>>(
+      q_tile, do_tile, k_own, v_own, lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv), o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(int D, const void* q, const void* k, const void* v, const void* out,
+             const float* lse, const void* dout, void* dq, void* dk, void* dv, float* work,
+             int B, int Hkv, const Opts& o, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return tcb::launch_typed<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
+                                      stream);
+    case 128:
+      return tcb::launch_typed<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
+                                       stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tcb
+
 extern "C" {
 
-// Launches the three kernels on `stream` (no synchronisation) and returns 0
-// or a cudaError_t. q, out, dout, dq: [B, Hq, S, D]; k, v, dk, dv:
-// [B, Hkv, S, D]; all contiguous, of the type `dtype` (0 f32, 1 bf16,
-// 2 f16) and aligned to 16 bytes. lse is the forward's [B * Hq, S] f32
-// log-sum-exp; delta is [B * Hq, S] f32 scratch. Hq is a multiple of Hkv,
-// D a multiple of 32 up to 256, B * Hq <= 65535. has_window = 0 ignores
-// `window`; has_cap = 0 ignores `cap`.
+// 1 if flash_attention_bwd_launch runs the tensor-core kernels for this
+// dtype code and head dim, 0 if the CUDA-core ones.
+int flash_attention_bwd_uses_tensor_cores(int dtype, int D) {
+  return (dtype == BF16 || dtype == F16) && (D == 64 || D == 128);
+}
+
+// Launches the three kernels on `stream` (no synchronisation) and returns 0,
+// a cudaError_t or a code of the tensor-map encoding
+// (flash_attention_bwd_error_string names each). q, out, dout, dq:
+// [B, Hq, S, D]; k, v, dk, dv: [B, Hkv, S, D]; all contiguous, of the type
+// `dtype` (0 f32, 1 bf16, 2 f16) and aligned to 16 bytes. lse is the
+// forward's [B * Hq, S] f32 log-sum-exp; work is f32 scratch of
+// 2 * B * Hq * S_pad values, S_pad = S rounded up to a multiple of 64,
+// aligned to 256 bytes. Hq is a multiple of Hkv, D a multiple of 32 up to
+// 256, B * Hq <= 65535. has_window = 0 ignores `window`; has_cap = 0
+// ignores `cap`.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const float* lse, const void* dout,
-                               void* dq, void* dk, void* dv, float* delta, int dtype,
+                               void* dq, void* dk, void* dv, float* work, int dtype,
                                int B, int Hq, int Hkv, int S, int D, float sm_scale,
                                int causal, int has_window, int window, int has_cap,
                                float cap, void* stream) {
@@ -523,6 +1204,15 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   }
   const Opts o{S, Hq, Hq / Hkv, sm_scale, causal, has_window, window, has_cap, cap};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flash_attention_bwd_uses_tensor_cores(dtype, D)) {
+    if (dtype == BF16) {
+      return tcb::launch_d<__nv_bfloat16>(D, q, k, v, out, lse, dout, dq, dk, dv, work, B,
+                                          Hkv, o, st);
+    }
+    return tcb::launch_d<__half>(D, q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
+                                 st);
+  }
+  float* delta = work;
   cudaError_t err;
   switch (dtype) {
     case F32:
@@ -542,8 +1232,6 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-const char* flash_attention_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_bwd_error_string(int code) { return hopper::error_string(code); }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of flash_attention.cu: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the wgmma instructions
-// themselves, as inline PTX. Header-only; included by one translation unit.
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile and bulk
+// loads, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, as inline PTX, and the host side of the tensor maps.
+// Header-only; each source that includes it is its own library.
 //
 // Shared-memory tiles here are 128-byte-swizzled panels: a tile of R rows
 // and C 16-bit columns is stored as C / 64 panels of R rows x 128 bytes,
@@ -10,9 +12,11 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -69,6 +73,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -426,6 +442,81 @@ wgmma_rs<__half, 256>(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------------------ host: maps
+
+constexpr int PANEL_COLS = 64;              // 16-bit columns of one 128-byte box
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the C interfaces beyond cudaError_t's range.
+constexpr int ERR_NO_ENCODER = 100000;      // driver has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = 100001;          // + CUresult of a refused encoding
+
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that
+// the library needs no -lcuda. Returns 0 or an error code.
+inline int encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return ERR_NO_ENCODER;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// [heads, S, D] of 16-bit values, boxes of 64 columns x `rows` rows x 1
+// head, 128-byte swizzle, zeros outside.
+inline int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                    CUtensorMapDataType type, int heads, int S, int D, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {PANEL_COLS, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
+}
+
+template <typename T> constexpr CUtensorMapDataType map_type();
+template <> constexpr CUtensorMapDataType map_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <> constexpr CUtensorMapDataType map_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// The message of a code returned by a C interface: a cudaError_t or one of
+// the encoding codes above.
+inline const char* error_string(int code) {
+  static char buf[96];
+  if (code == ERR_NO_ENCODER) return "the driver has no cuTensorMapEncodeTiled";
+  if (code >= ERR_ENCODE) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
+             code - ERR_ENCODE);
+    return buf;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace hopper

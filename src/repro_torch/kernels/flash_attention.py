@@ -11,11 +11,15 @@ and of the gradient that JAX's autodiff takes of the reference attention:
   tensor it launches a kernel or raises; on a CPU tensor it runs
   :func:`flash_attention_torch`. When grad mode is on and q, k or v
   requires grad, it goes through :class:`_FlashAttention`, whose backward
-  is the hand-written kernel of ``csrc/flash_attention_bwd.cu`` on the card
-  and :func:`flash_attention_backward_torch` on the CPU.
+  is the hand-written kernels of ``csrc/flash_attention_bwd.cu`` on the
+  card (on tensor cores for bf16/f16 at D 64 and 128, on CUDA cores for f32
+  and the other head dims; the source's note says why) and
+  :func:`flash_attention_backward_torch` on the CPU.
   ``flash_attention.launches`` counts every forward kernel launch,
-  ``flash_attention.tensor_core_launches`` those of the tensor-core kernel
-  and ``flash_attention.backward_launches`` those of the backward kernel.
+  ``flash_attention.tensor_core_launches`` those of the tensor-core kernel,
+  ``flash_attention.backward_launches`` every backward launch and
+  ``flash_attention.tensor_core_backward_launches`` those of the
+  tensor-core backward.
 * :func:`flash_attention_lse` and :func:`flash_attention_backward` are the
   two halves the Function runs: the forward with each row's log-sum-exp,
   and dq, dk, dv from q, k, v, the output, the log-sum-exp and d out.
@@ -79,6 +83,8 @@ def _bwd_library() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_bwd_uses_tensor_cores.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_bwd_uses_tensor_cores.restype = ctypes.c_int
     return lib
 
 
@@ -172,7 +178,9 @@ def _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap):
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = _aligned(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b * hq, s_len), dtype=torch.float32, device=q.device)
+    # the kernels' scratch: each row's D and lse, rows padded to whole tiles
+    s_pad = -(-s_len // 64) * 64
+    work = torch.empty(2 * b * hq * s_pad, dtype=torch.float32, device=q.device)
     has_window, win = _window_args(window, s_len)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
@@ -180,7 +188,7 @@ def _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), _DTYPES[q.dtype], b, hq, k.shape[1], s_len, d,
+            work.data_ptr(), _DTYPES[q.dtype], b, hq, k.shape[1], s_len, d,
             float(sm_scale), int(causal), has_window, win,
             int(softcap is not None), float(softcap or 0.0), stream,
         )
@@ -190,6 +198,8 @@ def _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap):
             f"{lib.flash_attention_bwd_error_string(err).decode()}"
         )
     flash_attention.backward_launches += 1
+    if lib.flash_attention_bwd_uses_tensor_cores(_DTYPES[q.dtype], d):
+        flash_attention.tensor_core_backward_launches += 1
     return dq, dk, dv
 
 
@@ -214,8 +224,9 @@ def flash_attention_backward(q, k, v, o, lse, do, *, sm_scale: float,
                              block_kv: int = 128):
     """dq, dk, dv of :func:`flash_attention` from its inputs, its output
     ``o``, the log-sum-exp ``lse`` of :func:`flash_attention_lse` and the
-    output's gradient ``do``. CUDA tensors launch the backward kernel;
-    CPU tensors run :func:`flash_attention_backward_torch` with the blocks."""
+    output's gradient ``do``. CUDA tensors launch the backward kernels (on
+    tensor cores for bf16/f16 at D 64 and 128, else on CUDA cores); CPU
+    tensors run :func:`flash_attention_backward_torch` with the blocks."""
     if q.device.type == "cpu":
         return flash_attention_backward_torch(
             q, k, v, o, lse, do, sm_scale=sm_scale, causal=causal, window=window,
@@ -290,6 +301,7 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.tensor_core_launches = 0
 flash_attention.backward_launches = 0
+flash_attention.tensor_core_backward_launches = 0
 
 
 def flash_attention_torch(

@@ -2,14 +2,17 @@
 
 The PyTorch counterpart of the GQA part of the JAX package's
 ``src/repro/models/attention.py``. Every causal pass with more than one
-query, no ``cross_kv`` and no ``prefix_len`` (prefill, and a parallel
-forward without caches, as in training) computes attention with the
-hand-written flash-attention kernel (``kernels/flash_attention.py``), over
-the prompt's own k/v; with grad on, its gradient runs in the hand-written
-backward kernel. That equals the reference, which attends over the whole cache with
+query, no ``cross_kv`` and no ``prefix_len`` whose keys are its own (a
+parallel forward without caches, as in training, and a prefill that writes
+its cache from position 0) computes attention with the hand-written
+flash-attention kernel (``kernels/flash_attention.py``), over the prompt's
+own k/v; with grad on, its gradient runs in the hand-written backward
+kernel. That equals the reference, which attends over the whole cache with
 a ``valid`` mask: keys past the prompt are masked both by ``valid`` and by
-causality. Decode (one query) and the other passes attend in plain torch
-ops, as the reference does outside any Pallas kernel.
+causality. Decode (one query), a prefill at a later offset of its cache
+(which attends over the cache's earlier entries too) and the other passes
+attend in plain torch ops over the whole cache, as the reference does
+outside any Pallas kernel.
 
 The cache is updated in place (the reference returns a new one): a decode
 step then writes one position per layer instead of copying the whole cache.
@@ -132,14 +135,13 @@ def gqa_attention(
 
     new_cache = None
     if cache is not None and cross_kv is None:
-        if prefill and int(positions[0]) != 0:
-            raise NotImplementedError(
-                "a prefill with a cache starts at position 0 (the kernel "
-                "attends over the prompt's own k/v only)")
         # write k/v at the pass's positions
         cache.k.index_copy_(2, positions, k)
         cache.v.index_copy_(2, positions, v)
         new_cache = cache
+        # the kernel attends over the pass's own k/v: a prefill from
+        # position 0 sees nothing else of the cache, a later one does
+        prefill = prefill and int(positions[0]) == 0
 
     if prefill:
         out = flash_attention_padded(
@@ -149,7 +151,8 @@ def gqa_attention(
         )
     else:
         if new_cache is not None:
-            # decode: attend over the whole cache, unwritten slots masked
+            # decode, or a prefill at an offset: attend over the whole
+            # cache, unwritten slots masked
             k, v = cache.k, cache.v
             k_pos = torch.arange(k.shape[2], device=x.device)
             valid = k_pos <= positions[-1]

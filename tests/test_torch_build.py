@@ -1,12 +1,14 @@
 """The kernel build's cache key, on the CPU (no nvcc needed).
 
 A built library is reused when its name matches, and the name is a digest of
-what the build reads. The flash-attention source includes ``hopper.cuh``,
+what the build reads. Both flash-attention sources include ``hopper.cuh``,
 so an edited header must give a new name, or a stale library would be
 loaded.
 """
 
 import re
+
+import pytest
 
 from repro_torch.kernels import _build
 
@@ -39,8 +41,9 @@ def test_library_name_follows_the_source_the_headers_and_the_flags(tmp_path, mon
     assert _build.library_path("k") != edited_header
 
 
-def test_the_flash_source_includes_only_headers_the_digest_covers():
-    src = (_build._CSRC / "flash_attention.cu").read_text()
+@pytest.mark.parametrize("source", ["flash_attention.cu", "flash_attention_bwd.cu"])
+def test_the_flash_source_includes_only_headers_the_digest_covers(source):
+    src = (_build._CSRC / source).read_text()
     local = re.findall(r'^#include "([^"]+)"', src, re.M)
     assert local == ["hopper.cuh"]
     assert all((_build._CSRC / name).is_file() and name.endswith(".cuh")

@@ -21,6 +21,8 @@ from repro.core.dfg import splice_routes as jsplice_routes
 from repro.core.simulate import check_equivalence as jcheck_equivalence
 from repro.core.simulate import interpret_dfg as jinterpret_dfg
 from repro.core.simulate import register_pressure_by_pe as jregister_pressure_by_pe
+from repro.core.time_backends import BackendUnavailable as JBackendUnavailable
+from repro.core.time_backends import available_backends as javailable_backends
 from repro_torch.core import CGRA, DFG, map_dfg, running_example
 from repro_torch.core.benchsuite import TABLE3_BENCHMARKS, load_suite, route_stress_dfg
 from repro_torch.core.dfg import splice_routes
@@ -126,15 +128,32 @@ def test_interop_rejects_an_invalid_mapping():
 
 def test_unported_backends_raise():
     dfg, cgra = running_example(), CGRA(2, 2)
-    assert available_backends() == {"cp": True}
-    with pytest.raises(BackendUnavailable, match="not ported"):
+    # z3 is registered as in the reference, which is where its absence shows
+    assert available_backends() == javailable_backends() == {"cp": True, "z3": False}
+    with pytest.raises(BackendUnavailable, match="^time backend 'z3' is not importable$"):
         map_dfg(dfg, cgra, backend="z3")
+    with pytest.raises(JBackendUnavailable, match="^time backend 'z3' is not importable$"):
+        jmap_dfg(jrunning_example(), JCGRA(2, 2), backend="z3")
     with pytest.raises(SpaceBackendNotPorted, match="not ported"):
         map_dfg(dfg, cgra, space_backend="anneal")
     with pytest.raises(SpaceBackendNotPorted):
         map_dfg(dfg, CGRA(21, 20))          # auto above 400 PEs
     with pytest.raises(NotImplementedError, match="cache"):
         map_dfg(dfg, cgra, cache_dir="somewhere")
+
+
+@pytest.mark.parametrize("z3_available", [True, False])
+def test_auto_time_backend_resolves_as_in_the_reference(monkeypatch, z3_available):
+    """``auto`` takes z3 wherever z3 is importable, in both packages; z3's
+    availability is stubbed in each registry, so this needs no z3."""
+    from repro.core.time_backends import base as jbase
+    from repro_torch.core.time_backends import base
+
+    for registry in (base._REGISTRY, jbase._REGISTRY):
+        monkeypatch.setattr(registry["z3"], "available", lambda: z3_available)
+    want = "z3" if z3_available else "cp"
+    assert base.resolve_backend_name("auto") == jbase.resolve_backend_name("auto") == want
+    assert base.available_backends() == jbase.available_backends()
 
 
 def test_cache_dir_from_environment_raises(monkeypatch):

@@ -5,6 +5,8 @@ with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 Imports nothing of JAX, so it runs where JAX is not installed.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -190,15 +192,35 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / max(float(want.float().abs().max()), 1.0))
 
 
+def _tensor_core_bwd(dtype, d) -> bool:
+    """Whether the backward takes the tensor-core kernels (else the CUDA-core ones)."""
+    return dtype != torch.float32 and d in (64, 128)
+
+
 # f32 within 2e-5 and bf16/f16 within 2e-2 of each gradient's max |g|
 @pytest.mark.parametrize("case", [
+    # the CUDA-core kernels: f32 at every D, bf16/f16 at D 96, 192, 256
     ((2, 4, 2, 256, 64), torch.float32, {}),
     ((1, 8, 1, 256, 96), torch.float32, {"window": 64, "softcap": 20.0}),
     ((1, 2, 2, 128, 64), torch.float32, {"causal": False}),
     ((2, 8, 4, 512, 256), torch.float32, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 2, 256, 96), torch.bfloat16, {}),
+    ((1, 4, 2, 256, 192), torch.float16, {"window": 100}),
+    ((1, 4, 2, 256, 256), torch.bfloat16, {}),
+    # the tensor-core kernels in bf16 and f16 at D 64 and 128: GQA groups 1,
+    # 2 and 4, window, softcap, non-causal, S below one tile and ragged,
+    # all rows masked
     ((1, 4, 2, 256, 128), torch.bfloat16, {}),
     ((1, 4, 2, 48, 64), torch.float16, {}),
     ((1, 2, 2, 256, 128), torch.bfloat16, {"window": 0}),
+    ((2, 4, 4, 256, 64), torch.bfloat16, {}),
+    ((1, 8, 2, 384, 128), torch.float16, {"window": 100}),
+    ((1, 8, 2, 256, 64), torch.float16, {"softcap": 30.0}),
+    ((1, 4, 2, 256, 128), torch.bfloat16, {"window": 64, "softcap": 20.0}),
+    ((1, 4, 2, 200, 128), torch.bfloat16, {}),
+    ((1, 4, 1, 200, 64), torch.float16, {"causal": False}),
+    ((1, 2, 2, 256, 128), torch.float16, {"causal": False, "window": 64}),
+    ((2, 4, 2, 48, 128), torch.bfloat16, {"window": 16}),
 ])
 def test_flash_backward_kernel_matches_plain(cuda, case):
     shape, dtype, kw = case
@@ -214,8 +236,11 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
     assert torch.equal(torch.isfinite(lse), live)
     torch.testing.assert_close(lse[live], want_lse[live], atol=1e-4, rtol=1e-5)
     before = flash_attention.backward_launches
+    tc_before = flash_attention.tensor_core_backward_launches
     got = flash_attention_backward(q, k, v, o, lse, do, **opts)
     assert flash_attention.backward_launches == before + 1
+    assert (flash_attention.tensor_core_backward_launches - tc_before
+            == int(_tensor_core_bwd(dtype, d)))
     torch.cuda.synchronize()
     want = flash_attention_backward_torch(q, k, v, o, lse, do, **opts)
     for g, w in zip(got, want):
@@ -223,6 +248,17 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
         assert _rel_err(g, w) <= tol
     if kw.get("window") == 0:
         assert all(torch.equal(g, torch.zeros_like(g)) for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_backward_is_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=3)
+    do = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=4)[0]
+    o, lse = flash_attention_lse(q, k, v, sm_scale=128 ** -0.5, window=300)
+    first = flash_attention_backward(q, k, v, o, lse, do, sm_scale=128 ** -0.5, window=300)
+    second = flash_attention_backward(q, k, v, o, lse, do, sm_scale=128 ** -0.5, window=300)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_output_keeps_its_gradient_on_the_card(cuda):
@@ -294,3 +330,23 @@ def test_reduced_training_step_on_the_card(cuda):
     assert np.isfinite(losses).all()
     _, cpu_metrics = step(cpu_state, data.batch_at(0, "cpu"))
     assert abs(losses[0] - float(cpu_metrics["loss"])) <= 1e-4
+
+
+def test_reduced_bf16_training_step_runs_the_tensor_core_backward(cuda):
+    """Reduced qwen3-0.6b in bf16 at head dim 64 on the card: every layer's
+    backward runs the tensor-core kernels, once a step, and the losses are
+    finite."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype=torch.bfloat16,
+                              head_dim=64)
+    spec = build_model(cfg)
+    opt_cfg = AdamWConfig(total_steps=2, warmup_steps=1)
+    data = SyntheticLM(cfg, 2, 128, seed=0)
+    step = train.make_step(spec, opt_cfg, compression=False)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device=cuda)
+    tc = flash_attention.tensor_core_backward_launches
+    losses = []
+    for i in range(2):
+        state, metrics = step(state, data.batch_at(i, cuda))
+        losses.append(float(metrics["loss"]))
+    assert flash_attention.tensor_core_backward_launches - tc == 2 * cfg.num_layers
+    assert np.isfinite(losses).all()

@@ -8,7 +8,8 @@ the autograd Function runs on CPU tensors, is held here against
 tests/test_kernels_flash.py, with the same inputs (made from numpy seeds)
 and the forward's tolerances: 2e-5 in f32, 2e-2 in bf16. The CUDA kernel
 itself is held against the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py); the rounding its tensor-core
+variant adds is sized here by a copy of its algorithm.
 """
 
 import jax
@@ -185,3 +186,67 @@ def test_lse_is_the_row_log_sum_exp():
     ok = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < 32)
     want = torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1).reshape(4, 128)
     torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None):
+    """dq, dk, dv (f32) as the tensor-core backward kernels compute them: f32
+    scores, P = exp(c - lse) from the forward's f32 lse, D = rowsum(dO o)
+    with o in the input type, and P and dS rounded to ``dtype`` before the
+    products that take them (dV = P^T dO, dK = dS^T Q, dQ = dS K); every
+    sum in f32."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    c = qf @ kf.transpose(-1, -2) * scale
+    if softcap is not None:
+        c = softcap * torch.tanh(c / softcap)
+    pos = torch.arange(s)
+    ok = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= pos[:, None] - pos[None, :] < window
+    lse = torch.logsumexp(torch.where(ok, c, -torch.inf), dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(c - lse), 0.0)
+    o = (p @ vf).to(dtype).float()
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o).sum(-1, keepdim=True))
+    if softcap is not None:
+        ds = ds * (1.0 - (c / softcap) ** 2)
+    p16, ds16 = p.to(dtype).float(), ds.to(dtype).float()
+
+    def group_sum(x):
+        return x.reshape(b, hq // group, group, s, d).sum(dim=2)
+
+    return (ds16 @ kf * scale, group_sum(ds16.transpose(-1, -2) @ qf) * scale,
+            group_sum(p16.transpose(-1, -2) @ dof))
+
+
+def _jax_value_and_grads(q, k, v, do, **kw):
+    """jax.value_and_grad of sum(reference_attention(q, k, v) * do)."""
+    def loss(a, b, c):
+        out = _jax_reference_attention(a, b, c, **kw)
+        return jnp.sum(out.astype(jnp.float32) * do.astype(jnp.float32))
+
+    return jax.value_and_grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("opts", [{}, {"window": 64, "softcap": 30.0}], ids=["causal", "window-softcap"])
+def test_tensor_core_backward_rounding_stays_inside_the_gate(dtype, opts):
+    """The tensor-core backward rounds P and dS to 16 bits before their
+    products, where the plain version keeps f32. At a reduced training shape
+    (S 256, D 128, GQA 2, causal) that rounding keeps each gradient within
+    the 16-bit gate, 2e-2 of its max |g|, of JAX's autodiff."""
+    jdtype = getattr(jnp, dtype)
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(1, 4, 2, 256, 128, jdtype)
+    assert q.dtype == getattr(torch, dtype)
+    _, want = _jax_value_and_grads(jq, jk, jv, jdo, causal=True, **opts)
+    got = _rounded_grads(q, k, v, do, dtype=getattr(torch, dtype), **opts)
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.asarray(w, np.float32))
+        assert g.shape == w.shape
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 2e-2, err

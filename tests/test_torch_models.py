@@ -23,6 +23,7 @@ from repro.launch.serve import serve_batch as jserve_batch
 from repro.models import build_model as jbuild_model
 from repro.models import layers as jlayers
 from repro.models import param_count as jparam_count
+from repro.models.attention import KVCache as JKVCache
 from repro.models.attention import _blocked_scores_attention as j_blocked
 from repro.models.attention import gqa_attention as _jgqa_attention
 from repro.models.attention import gqa_init as jgqa_init
@@ -128,6 +129,26 @@ def test_gqa_attention_prefill_and_decode_match(name, window):
     assert flash_attention.launches == before              # CPU: no kernel
 
 
+@pytest.mark.parametrize("offset", [2, 5])
+def test_gqa_attention_prefill_at_an_offset_matches(offset):
+    """A prefill of 4 tokens into a cache of 16 that already holds earlier
+    entries: k/v written at the offset, attention over the whole cache (the
+    earlier entries and the prompt; later slots masked), as the reference
+    computes it."""
+    jcfg, cfg, jp, p = _attn_case("qwen3-0.6b")
+    b, s, cache_len = 2, 4, 16
+    x = _rand(b, s, cfg.d_model, seed=12)
+    old = _rand(2, b, cfg.num_kv_heads, cache_len, cfg.head_dim, seed=13)
+    jcache = JKVCache(jnp.asarray(old[0]), jnp.asarray(old[1]))
+    cache = attention.KVCache(_t(old[0]), _t(old[1]))
+    pos = np.arange(offset, offset + s)
+    want, jcache = jgqa_attention(jp, jnp.asarray(x), jnp.asarray(pos), jcfg, cache=jcache)
+    got, cache = attention.gqa_attention(p, _t(x), torch.as_tensor(pos), cfg, cache=cache)
+    _close(got, want)
+    _close(cache.k, jcache.k)
+    _close(cache.v, jcache.v)
+
+
 def test_gqa_attention_non_flash_passes_match():
     """Passes the kernel does not take: prefix-LM, cross-attention, and the
     blocked scores path (one query block at a time, ragged last block)."""
@@ -230,11 +251,6 @@ def test_unported_families_raise(name):
 def test_mla_premap_and_offset_prefill_raise():
     with pytest.raises(NotImplementedError, match="MLA"):
         attention.mla_attention(None, None, None, None)
-    _, cfg, _, p = _attn_case("qwen3-0.6b")
-    cache = attention.make_kv_cache(cfg, 1, 16, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="position 0"):
-        attention.gqa_attention(p, _t(_rand(1, 4, cfg.d_model)), torch.arange(2, 6),
-                                cfg, cache=cache)
     with pytest.raises(NotImplementedError, match="premap"):
         serve.main(["--arch", "qwen3-0.6b", "--reduced", "--premap-kernels", "4"])
 
