@@ -73,6 +73,19 @@ fails (non-zero exit, no result line) if any phase fails:
    the backward of ``scaled_dot_product_attention`` (a yardstick only),
    beside its bound, its plain version and the CUDA-core backward on the
    same shape in f32.
+12. compiler API path at full size, through the entry points users call:
+   the 17-kernel suite premapped cold onto a 20x20 grid by ``python -m
+   repro_torch.compile`` (a subprocess with no CUDA context, 4 forked
+   workers, a fresh persistent cache under ``build/``); a warm
+   ``repro_torch.api.Compiler`` session on the same cache (17 disk hits, 0
+   solves, the mappings the cold run wrote); every warm mapping executed by
+   ``cgra_run`` at 16384 streams x 64 iterations; heartwall and backprop
+   mapped on the ``mesh_50x50`` preset by the annealing engine and executed
+   at the same size (traces of 43 and 53 GB, checked against the plain
+   version in lane chunks), heartwall's kernel timed beside its bound; the
+   suite on the heterogeneous ``satmapit_edge_mem_4x4`` preset mapped and
+   executed; ``examples/quickstart_torch.py`` run on the card. cgra_sim
+   launches are counted over the phase's executions alone.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -83,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -99,11 +113,13 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.api import Compiler, resolve_options  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import CGRA, DFG, Edge, map_dfg, running_example  # noqa: E402
+from repro_torch.core import CGRA, DFG, Edge, map_dfg, op_class, running_example  # noqa: E402
 from repro_torch.core.benchsuite import load_suite  # noqa: E402
 from repro_torch.core.dfg import OP_ARITY  # noqa: E402
-from repro_torch.core.simulate import interpret_dfg  # noqa: E402
+from repro_torch.core.mapper import clear_mapping_cache  # noqa: E402
+from repro_torch.core.simulate import check_equivalence, interpret_dfg  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch  # noqa: E402
 from repro_torch.checkpoint import restore  # noqa: E402
@@ -172,6 +188,24 @@ FIRST_LOSS_BAND = (11.65, 12.7)
 PARITY_LOSS_TOL = 1e-5
 PARITY_GRAD_TOL = 1e-3
 BWD_INNER = 3         # backward launches per timing at the training shape
+
+API_GRID = 20
+API_JOBS = 4
+API_DEADLINE_S = 30.0
+# The IIs the JAX package's own compile CLI gives for the same cold premap
+# (the same flags: the suite on 20x20, fast profile, 4 workers, 30 s
+# deadline; run on a CPU host): printed beside the port's, not a gate, since
+# the fast profile's wall-clock budgets may settle one II higher under load.
+REFERENCE_II_20 = {
+    "aes": 14, "backprop": 5, "basicmath": 7, "bitcount": 3, "cfd": 6,
+    "crc32": 8, "fft": 7, "gsm": 4, "heartwall": 4, "hotspot3D": 5, "lud": 4,
+    "nw": 4, "particlefilter": 9, "sha1": 3, "sha2": 7, "stringsearch": 3,
+    "susan": 5,
+}
+LARGE_PRESET = "mesh_50x50"
+LARGE_KERNELS = ("heartwall", "backprop")     # heartwall: BENCH_scale.json's kernel
+LANE_CHUNK = 1024      # lanes of the plain version held at once at 50x50
+HETERO_PRESET = "satmapit_edge_mem_4x4"
 
 
 def log(*parts) -> None:
@@ -281,23 +315,32 @@ def drive_main_path(suite: dict) -> dict:
     return runs
 
 
-def check_full(name: str, run: dict) -> float:
+def check_full(name: str, run: dict, chunk: int = FULL_BATCH) -> float:
+    """The trace's shape, finiteness, equality with the plain version
+    (``chunk`` lanes of it at a time, so that a trace too large to hold
+    twice is checked too) and 8 sampled lanes against the oracle. Returns
+    max |kernel - plain|."""
     prog, inputs, trace = run["prog"], run["inputs"], run["trace"]
     m = prog.mapping
     C = m.schedule_length + (FULL_ITERS - 1) * m.ii
     check(tuple(trace.shape) == (C, prog.num_pes, FULL_BATCH), f"{name}: trace shape")
-    check(bool(torch.isfinite(trace).all()), f"{name}: non-finite trace")
     for v, out in run["outs"].items():
         check(tuple(out.shape) == (FULL_ITERS, FULL_BATCH), f"{name}: store {v} shape")
     tables = prog.sim_tables().to("cuda")
-    plain = cgra_sim_torch(tables, stacked(prog, inputs))
-    torch.cuda.synchronize()
-    same = torch.equal(trace, plain)
-    # max |kernel - plain| a few cycles at a time: a whole-trace difference
-    # would need as much memory again as the trace
-    err = max(float((trace[c:c + 16] - plain[c:c + 16]).abs().max())
-              for c in range(0, trace.shape[0], 16))
-    del plain
+    x = stacked(prog, inputs)
+    err, same = 0.0, True
+    for lo in range(0, FULL_BATCH, chunk):
+        part = trace[:, :, lo:lo + chunk]
+        # before the plain version exists: isfinite's temporaries are as
+        # large as the part, and at 20x20 three traces are held at once
+        check(bool(torch.isfinite(part).all()), f"{name}: non-finite trace")
+        plain = cgra_sim_torch(tables, x[:, :, lo:lo + chunk].contiguous())
+        same = same and torch.equal(part, plain)
+        # max |kernel - plain| a few cycles at a time: a whole-trace difference
+        # would need as much memory again as the trace
+        err = max([err] + [float((part[c:c + 16] - plain[c:c + 16]).abs().max())
+                           for c in range(0, C, 16)])
+        del plain
     check(same, f"{name}: kernel != plain version (max |d| {err})")
     lanes = np.random.default_rng(2).choice(FULL_BATCH, SAMPLED_LANES, replace=False)
     _, ref = cgra_sim_reference(prog, inputs, FULL_ITERS, lanes=lanes)
@@ -1133,6 +1176,175 @@ def phase_flash_bwd_timing() -> dict:
                 bound_by=bound_by)
 
 
+# ----------------------------------------------------------------- phase 12
+
+def cache_entries(root: Path) -> dict:
+    """The persistent cache's entries by DFG hash: (ii, t_abs, placement,
+    routes) as the cold run wrote them (one entry per kernel)."""
+    entries = {}
+    for path in sorted(root.rglob("*.json")):
+        e = json.loads(path.read_text())
+        check(e["key"][0] not in entries, f"two cache entries for {e['key'][0]}")
+        entries[e["key"][0]] = (e["ii"], e["t_abs"], e["placement"],
+                                [tuple(r) for r in e["routes"]])
+    return entries
+
+
+def run_mapping(name: str, mapping, map_s: float) -> None:
+    """Lower ``mapping``, execute it through ``cgra_run`` at full size and
+    hold the trace against the plain version and the oracle (phase 4's
+    check); the trace is freed before the next one."""
+    prog = compile_program(mapping)
+    inputs = seeded_inputs(prog, FULL_ITERS, FULL_BATCH, seed=1)
+    outs, trace = cgra_run(prog, inputs, FULL_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    check_full(name, dict(prog=prog, inputs=inputs, outs=outs, trace=trace,
+                          map_s=map_s))
+    del outs, trace
+    torch.cuda.empty_cache()
+
+
+def phase_api(smi: str) -> tuple[int, dict]:
+    """The compiler API path (see the module docstring, item 12). Returns
+    cgra_sim's launches over the phase's executions and heartwall's 50x50
+    timing row."""
+    t_phase = time.perf_counter()
+    suite = load_suite()
+    names = list(suite)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = Path(tempfile.mkdtemp(prefix="api-cache-", dir=ROOT / "build"))
+    report_path = cache_dir.with_name(cache_dir.name + "-report.json")
+    cgra_sim.launches = 0
+    try:
+        # 1. cold premap through the CLI, in a process that never touches CUDA
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.compile", "--suite",
+             "--size", str(API_GRID), "--profile", "fast", "--jobs", str(API_JOBS),
+             "--deadline-s", str(API_DEADLINE_S), "--cache-dir", str(cache_dir),
+             "--report", str(report_path), "--quiet"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cold_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"compile CLI exited {out.returncode}: {out.stderr[-2000:]}")
+        report = json.loads(report_path.read_text())
+        rows = {j["name"]: j for j in report["jobs"]}
+        check(sorted(rows) == sorted(names) and report["ok"], "cold premap: a kernel failed")
+        check(report["num_workers"] == API_JOBS, f"cold premap ran {report['num_workers']} workers")
+        check(report["cache"]["solved"] == len(names), f"cold premap: {report['cache']}")
+        log(f"  cold premap (python -m repro_torch.compile, {API_JOBS} workers): "
+            f"{len(names)} kernels on {API_GRID}x{API_GRID} in {cold_s:.2f} s "
+            f"(report wall {report['wall_s']} s)")
+        log("    II port/reference: " + ", ".join(
+            f"{n} {rows[n]['ii']}/{REFERENCE_II_20[n]}" for n in names))
+        entries = cache_entries(cache_dir)
+        check(len(entries) == len(names), f"{len(entries)} cache entries, not {len(names)}")
+
+        # 2. warm session in process: every kernel a disk hit, nothing solved
+        clear_mapping_cache()
+        t0 = time.perf_counter()
+        comp = Compiler(CGRA(API_GRID, API_GRID),
+                        resolve_options("fast", cache_dir=str(cache_dir)))
+        warm = comp.compile_batch(list(suite.values()))
+        warm_s = time.perf_counter() - t0
+        c = warm.cache_counters
+        check(warm.ok and c["disk_hits"] == len(names) and c["solved"] == 0
+              and c["failed"] == 0, f"warm session: {c}")
+        check(warm.num_workers > 1, "warm session fell back to one process")
+        for r in warm:
+            m = r.mapping
+            got = (m.ii, m.t_abs, m.placement, [tuple(x) for x in m.routes_spec()])
+            check(r.source == "disk", f"{r.name}: served from {r.source}")
+            check(got == entries[suite[r.name].stable_hash()]
+                  and m.ii == rows[r.name]["ii"], f"{r.name}: warm mapping != cold")
+        log(f"  warm session (Compiler.compile_batch, {warm.num_workers} workers): "
+            f"{c['disk_hits']} disk hits, {c['solved']} solved in {warm_s:.2f} s; "
+            f"every mapping equals the cold run's")
+
+        # 3. execute every warm mapping at full size
+        for r in warm:
+            run_mapping(r.name, r.mapping, rows[r.name]["wall_s"])
+
+        # 4. the annealing engine on 2500 PEs
+        big = Compiler(LARGE_PRESET, resolve_options("fast"))
+        large = {}
+        for name in LARGE_KERNELS:
+            res = big.compile(suite[name])
+            check(res.ok, f"{name} on {LARGE_PRESET}: {res.reason}")
+            check(res.space_backend == "anneal",
+                  f"{name} on {LARGE_PRESET}: placed by {res.space_backend}")
+            check(res.mapping.validate() == [], f"{name}: invalid 50x50 mapping")
+            check_equivalence(res.mapping)
+            prog = compile_program(res.mapping)
+            inputs = seeded_inputs(prog, FULL_ITERS, FULL_BATCH, seed=1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            outs, trace = cgra_run(prog, inputs, FULL_ITERS, device="cuda")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            err = check_full(f"{name} ({LARGE_PRESET}, {res.space_backend})",
+                             dict(prog=prog, inputs=inputs, outs=outs, trace=trace,
+                                  map_s=res.wall_s), chunk=LANE_CHUNK)
+            log(f"      trace {trace.numel() * 4 / 1e9:.1f} GB checked in lane chunks "
+                f"of {LANE_CHUNK} (max |d| {err}); peak device memory "
+                f"{peak / 2**30:.2f} GiB")
+            large[name] = (prog, inputs)
+            del outs, trace
+            torch.cuda.empty_cache()
+
+        # 5. the heterogeneous preset
+        hetero = Compiler(HETERO_PRESET, resolve_options(
+            "fast", jobs=API_JOBS, deadline_s=API_DEADLINE_S))
+        t0 = time.perf_counter()
+        batch = hetero.compile_batch(list(suite.values()))
+        hetero_s = time.perf_counter() - t0
+        failed = [r.name for r in batch if not r.ok]
+        check(not failed, f"{HETERO_PRESET}: not mapped: {failed}")
+        check(batch.num_workers == API_JOBS, f"{HETERO_PRESET}: {batch.num_workers} workers")
+        log(f"  {HETERO_PRESET}: {len(batch)} kernels mapped in {hetero_s:.2f} s "
+            f"({batch.num_workers} workers); II " +
+            ", ".join(f"{r.name} {r.ii}" for r in batch))
+        for r in batch:
+            cgra = hetero.cgra
+            check(all(cgra.capable(r.mapping.placement[v], op_class(r.mapping.dfg.ops[v]))
+                      for v in r.mapping.dfg.nodes), f"{r.name}: op on an incapable PE")
+            run_mapping(f"{r.name} ({HETERO_PRESET})", r.mapping, r.wall_s)
+        launches = cgra_sim.launches          # read before any timing launch
+        want = 2 * len(names) + len(LARGE_KERNELS)
+        check(launches == want, f"phase 12 launched cgra_sim {launches} times, not {want}")
+
+        # heartwall's kernel and its zero-fill alone, as phase 5 times them
+        prog, inputs = large[LARGE_KERNELS[0]]
+        tables = prog.sim_tables().to("cuda")
+        x = stacked(prog, inputs)
+        shape = (tables.num_cycles(FULL_ITERS), prog.num_pes, FULL_BATCH)
+        ms = time_ms(lambda: cgra_sim(tables, x), TIMED_RUNS)
+        fill_ms = time_ms(lambda: torch.zeros(shape, device="cuda"), TIMED_RUNS)
+        bound_ms, bound_by, nbytes = bound(prog, tables, x)
+        log(f"  {LARGE_KERNELS[0]} {LARGE_PRESET} on {smi}: kernel {ms:.4f} ms "
+            f"(median of {TIMED_RUNS}, zero-fill included; the fill alone "
+            f"{fill_ms:.4f} ms), bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B), "
+            f"{bound_ms / ms:.1%} of bound")
+        large_row = dict(ms=ms, fill_ms=fill_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del large, tables, x
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        report_path.unlink(missing_ok=True)
+
+    # 6. the example users start from, on the card
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"quickstart_torch.py exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    check("cgra_sim on cuda" in out.stdout, "quickstart_torch.py did not run on the card")
+    log(f"  examples/quickstart_torch.py: exit 0 ({out.stdout.strip().splitlines()[-1]})")
+    log(f"  cgra_sim launches in phase 12: {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, large_row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -1201,12 +1413,17 @@ def main() -> int:
     log(f"[11] flash_attention backward timing on {smi}")
     bwd_row = phase_flash_bwd_timing()
 
+    log(f"[12] compiler API path: the suite premapped on {API_GRID}x{API_GRID}, "
+        f"warm session, {LARGE_PRESET} (anneal), {HETERO_PRESET}; "
+        f"B={FULL_BATCH}, num_iters={FULL_ITERS}")
+    api_launches, _ = phase_api(smi)
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cgra_sim.cu",
         "replaces": "src/repro/kernels/cgra_sim.py:75",
-        "launches": launches,
+        "launches": launches + api_launches,
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

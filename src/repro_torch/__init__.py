@@ -3,8 +3,11 @@
 It sits beside the JAX package (``src/repro``), which stays the reference,
 and mirrors its module paths:
 
-core       the paper's mapping algorithm (CP time solver + exact
-           monomorphism space engine), copied so that deterministic runs are
+api        the stable public compiler surface: Compiler sessions, typed
+           CompileOptions profiles, structured CompileResult (DESIGN.md §11)
+core       the paper's mapping algorithm (time solver + monomorphism space
+           engines, architecture presets, the persistent mapping cache and
+           batch compilation), copied so that deterministic runs are
            bit-identical to the reference
 obs        the stdlib span tracer the mapper calls
 kernels    lowering of a mapping to per-step tables, and batched execution
@@ -31,3 +34,17 @@ that touch a device run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+# the api surface is re-exported lazily so `import repro_torch` stays light
+_API_EXPORTS = (
+    "Compiler", "CompileOptions", "CompileResult", "BatchResult",
+    "PROFILES", "resolve_options",
+)
+
+
+def __getattr__(name):
+    if name in _API_EXPORTS:
+        from repro_torch import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,16 +2,22 @@
 
 The PyTorch port's own copy of the paper's mapper (the framework-free part
 of the JAX package, carried over module for module): schedule.py
-(ASAP/ALAP/MobS/KMS/mII), time_smt.py (time solution on the CP backend),
-space_backends/ (the exact bitset monomorphism engine), mapper.py (the
-decoupled pipeline), benchsuite.py (Table III DFG suite) and simulate.py
-(functional validation). Deterministic runs are bit-identical to the JAX
-package's.
+(ASAP/ALAP/MobS/KMS/mII), time_smt.py (time solution), space_backends/
+(pluggable space solution: exact bitset monomorphism + annealing/clustered
+placement, DESIGN.md §13), mapper.py (the decoupled pipeline), baseline.py
+(joint SAT-MapIt-style comparison target), benchsuite.py (Table III DFG
+suite), simulate.py (functional validation), arch/ (declarative
+heterogeneous architecture specs: capability classes, topology families,
+memory ports — DESIGN.md §10), service/ (persistent mapping cache, batch
+compilation) and exact_backends/ (exact joint solver, optimality
+certificates). Deterministic runs are bit-identical to the JAX package's.
 """
 
+from .arch import ArchSpec, get_preset, list_presets, resolve_arch
 from .cgra import CAP_CLASSES, CGRA, MRRG, op_class
 from .dfg import DFG, Edge, Route, running_example, splice_routes
 from .mapper import Mapping, MapResult, map_dfg
+from .mono import check_monomorphism, check_routes, find_monomorphism
 from .schedule import (
     KMS,
     MobilitySchedule,
@@ -25,9 +31,6 @@ from .schedule import (
 from .space_backends import (
     SpaceBudget,
     available_space_backends,
-    check_monomorphism,
-    check_routes,
-    find_monomorphism,
     resolve_space_backend,
 )
 from .time_smt import (
@@ -38,6 +41,7 @@ from .time_smt import (
 )
 
 __all__ = [
+    "ArchSpec", "get_preset", "list_presets", "resolve_arch",
     "CAP_CLASSES", "op_class",
     "CGRA", "MRRG", "DFG", "Edge", "Route", "running_example", "splice_routes",
     "Mapping", "MapResult", "map_dfg",

@@ -113,9 +113,8 @@ class CGRA:
     capability classes PE p supports (see ``CAP_CLASSES``), and ``mem_ports``
     optionally bounds memory ops per cycle grid-wide. ``None`` (the default)
     means the paper's homogeneous machine — every PE supports every class —
-    so all pre-existing callers are unchanged. The architecture presets are
-    not ported yet; :mod:`repro_torch.interop` carries a heterogeneous grid
-    over field by field.
+    so all pre-existing callers are unchanged. Build heterogeneous instances
+    through :mod:`repro_torch.core.arch` rather than by hand.
 
     Example::
 

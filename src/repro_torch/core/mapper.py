@@ -22,11 +22,12 @@ smallest-II-first quality preference. Time solutions whose partitions failed
 to embed are kept and retried with bigger space budgets/new seeds in later
 rounds before fresh partitions are enumerated (time work is never repeated),
 and finished mappings land in a small LRU cache keyed on (DFG content hash,
-CGRA dims, II) so repeated compilations of the same kernel are free. The JAX
-package's persistent on-disk layer under the LRU (``cache_dir`` /
-$REPRO_CACHE_DIR, DESIGN.md §9) is not ported yet: asking for it raises.
-(II, slack) window striping (``window_offset``/``window_stride``) is kept, so
-a caller can still split one search across processes.
+CGRA dims, II) so repeated compilations of the same kernel are free. A
+persistent on-disk layer under the LRU (``cache_dir`` / $REPRO_CACHE_DIR,
+service/cache.py, DESIGN.md §9) extends that reuse across processes and
+restarts, and the service layer (service/batch.py, DESIGN.md §8) fans the
+mapper out across worker processes — per batch via ``compile_many`` and per
+job via (II, slack) window striping (``window_offset``/``window_stride``).
 
 ``deterministic=True`` replaces every wall-clock budget with visited-node /
 solver-step budgets: identical inputs then take the identical search path
@@ -35,7 +36,6 @@ regardless of machine load (used by tests; see DESIGN.md §6.3).
 
 from __future__ import annotations
 
-import os
 import time as _time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -43,11 +43,9 @@ from dataclasses import dataclass, field
 from .. import obs
 from .cgra import CGRA
 from .dfg import DFG, Route, splice_routes
+from .mono import SpaceStats, check_monomorphism, check_routes, find_monomorphism
 from .space_backends import (
     SpaceBudget,
-    SpaceStats,
-    check_monomorphism,
-    check_routes,
     create_space_backend,
     resolve_space_backend_name,
 )
@@ -190,6 +188,7 @@ class MapperStats:
     rounds: int = 0
     windows_opened: int = 0          # (II, slack) windows that got a solver
     cache_hit: bool = False          # served from the in-process LRU
+    disk_cache_hit: bool = False     # served from the persistent disk cache
     space_nodes_visited: int = 0
     # ---- observability counters (DESIGN.md §15.3): per-compile solver and
     # cache-layer telemetry mirrored into JobReport/CompileResult.metrics
@@ -197,6 +196,9 @@ class MapperStats:
     space_restarts: int = 0          # space-engine restarts across all probes
     mem_cache_lookups: int = 0       # in-process LRU consultations (0 or 1)
     mem_cache_hits: int = 0
+    disk_cache_lookups: int = 0      # persistent-layer consultations (0 or 1)
+    disk_cache_hits: int = 0
+    disk_cache_promotions: int = 0   # disk hits promoted into the LRU
 
 
 @dataclass
@@ -224,8 +226,9 @@ _MAP_CACHE_MAX = 128
 class MemoryCacheStats:
     """Hit/miss counters for the in-process LRU mapping cache.
 
-    Process-wide, reset together with the cache by
-    :func:`clear_mapping_cache` (DESIGN.md §15.3).
+    The symmetric twin of ``service.cache.CacheStats`` — process-wide, reset
+    together with the cache by :func:`clear_mapping_cache`, and surfaced
+    per compile through ``CompileResult.metrics`` (DESIGN.md §15.3).
     """
 
     hits: int = 0
@@ -288,7 +291,8 @@ def _rebuild_mapping(
 ) -> Mapping:
     """Reconstruct a (possibly routed) Mapping from cached arrays.
 
-    Raises ValueError when ``routes_spec`` does not splice onto ``dfg``.
+    Raises ValueError when ``routes_spec`` does not splice onto ``dfg`` —
+    disk-cache callers treat that as a corrupt entry.
     """
     if routes_spec:
         routed, routes = splice_routes(dfg, [tuple(s) for s in routes_spec])
@@ -325,6 +329,44 @@ def _cache_get(
 
 def _cache_drop(base_key: tuple, ii: int) -> None:
     _MAP_CACHE.pop((*base_key, ii), None)
+
+
+def cache_store_mapping(
+    dfg: DFG,
+    cgra: CGRA,
+    mapping: Mapping,
+    *,
+    connectivity: str = "strict",
+    max_register_pressure: int | None = None,
+    max_route_hops: int = 0,
+    space_backend: str = "auto",
+    cache_dir: str | None = None,
+) -> None:
+    """Insert an externally produced valid mapping into both cache layers.
+
+    The adoption path of the exact certification sweep (DESIGN.md §14.4): a
+    ``better-found`` mapping comes from the joint backend, not from the
+    portfolio, yet future compiles under the *same* option key must be able
+    to serve it. The key mirrors ``_map_dfg_impl``'s lookup exactly —
+    ``space_backend`` is resolved the same way, so ``"auto"`` callers hit
+    what ``"auto"`` stores. The caller vouches for validity (``Compiler``
+    only adopts mappings that passed ``Mapping.validate``); both layers
+    re-validate on every read anyway.
+    """
+    resolved = resolve_space_backend_name(space_backend, cgra)
+    base_key = _cache_base_key(
+        dfg, cgra, connectivity, max_register_pressure, max_route_hops,
+        resolved,
+    )
+    _cache_put(base_key, mapping)
+    from .service.cache import DiskMappingCache, resolve_cache_dir
+
+    root = resolve_cache_dir(cache_dir)
+    if root is not None:
+        DiskMappingCache(root).put(
+            base_key, mapping.ii, mapping.t_abs, mapping.placement,
+            routes=mapping.routes_spec(),
+        )
 
 
 def _pressure_offenders(mapping: Mapping, max_rp: int) -> list[int]:
@@ -365,58 +407,33 @@ def ii_slack_windows(lo_ii: int, hi_ii: int, max_slack: int):
             yield ii, slack
 
 
-# Default slack depth of the sweep (the same in the JAX package, whose
-# service layer's racing clamp shares it).
+# Default slack depth of the sweep; shared with the racing clamp
+# (service/batch.py) so both agree on the window-space size.
 DEFAULT_MAX_SLACK = 3
 
 
 def default_max_ii(m_ii: int) -> int:
     """Default upper II bound of the sweep.
 
-    Single source of truth for the window-space size used by ``map_dfg``.
+    Single source of truth for the window-space size: used by ``map_dfg``
+    and by the service layer's racing clamp (service/batch.py), which must
+    agree on how many windows exist.
     """
     return max(m_ii * 4, m_ii + 8)
 
 
-_CONNECTIVITIES = ("strict", "paper")
-_BACKENDS = ("auto", "cp", "cp-inc", "python", "z3")
-_SPACE_BACKENDS = ("auto", "exact", "anneal")
+def map_dfg(dfg: DFG, cgra: CGRA, *, should_stop=None, **kwargs) -> MapResult:
+    """Map ``dfg`` onto ``cgra`` — compatibility shim over ``repro_torch.api``.
 
-
-def map_dfg(
-    dfg: DFG,
-    cgra: CGRA,
-    *,
-    should_stop=None,
-    max_ii: int | None = None,
-    max_slack: int = DEFAULT_MAX_SLACK,
-    connectivity: str = "strict",
-    backend: str = "auto",
-    space_backend: str = "auto",
-    time_budget_s: float = 120.0,
-    space_timeout_s: float = 0.6,
-    space_polish_timeout_s: float = 2.5,
-    space_timeout_growth: float = 1.0,
-    det_space_cap: int = 400_000,
-    max_retries_per_window: int = 8,
-    window_timeout_s: float = 10.0,
-    max_register_pressure: int | None = None,
-    max_route_hops: int = 0,
-    deterministic: bool = False,
-    use_cache: bool = True,
-    cache_dir: str | None = None,
-    window_offset: int = 0,
-    window_stride: int = 1,
-    seed: int = 0,
-) -> MapResult:
-    """Map ``dfg`` onto ``cgra``.
-
-    The keywords are the JAX package's mapper options (its
-    ``CompileOptions`` fields that reach the mapper), with the same
-    defaults, so ``map_dfg(dfg, cgra, **kw)`` takes the identical search
-    path in both packages. Unknown keywords raise ``TypeError``;
-    statically-invalid values raise ``ValueError`` as ``CompileOptions``
-    does there.
+    The stable entry point is now the :mod:`repro_torch.api` layer (DESIGN.md §11):
+    every keyword this function historically accepted is a field of
+    :class:`repro_torch.api.CompileOptions`, and this shim simply builds one and
+    delegates — ``map_dfg(dfg, cgra, **kw)`` and
+    ``Compiler(cgra, resolve_options(**kw)).compile(dfg)`` take the identical
+    search path (the parity tests in ``tests/test_api.py`` pin this
+    bit-for-bit). Unknown keywords raise ``TypeError`` via the options
+    dataclass; statically-invalid combinations raise ``ValueError`` from
+    ``CompileOptions.validate``.
 
     Example — map the paper's running example onto a 2×2 mesh::
 
@@ -426,47 +443,25 @@ def map_dfg(
         assert res.ok and res.mapping.ii == 4          # paper Fig. 2b
         print(res.mapping.pretty())                    # kernel table
 
-    ``should_stop`` (a zero-arg cancellation callable) is polled at every
-    budget check. See :func:`_map_dfg_impl` for the full option reference.
+    ``should_stop`` (a zero-arg cancellation callable) is not part of the
+    serialisable options and stays a direct argument. See
+    :func:`_map_dfg_impl` for the full option reference.
     """
-    if connectivity not in _CONNECTIVITIES:
-        raise ValueError(
-            f"connectivity must be one of {_CONNECTIVITIES}, got {connectivity!r}"
+    # lazy by design: the api layer imports this module, not vice versa
+    from ..api.options import MAPPER_FIELDS, CompileOptions
+
+    unknown = sorted(set(kwargs) - set(MAPPER_FIELDS))
+    if unknown:
+        # service-only CompileOptions fields (jobs, deadline_s, ...) must
+        # fail here exactly like the historical signature's TypeError did —
+        # silently ignoring a caller's budget/profile would be worse
+        raise TypeError(
+            f"map_dfg() got unexpected keyword arguments: {', '.join(unknown)}"
         )
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    if space_backend not in _SPACE_BACKENDS:
-        raise ValueError(
-            f"space_backend must be one of {_SPACE_BACKENDS}, "
-            f"got {space_backend!r}"
-        )
-    if space_timeout_s <= 0 or space_polish_timeout_s <= 0:
-        raise ValueError("space timeouts must be > 0")
-    if space_timeout_growth < 0:
-        raise ValueError("space_timeout_growth must be >= 0")
-    if det_space_cap < 1:
-        raise ValueError(f"det_space_cap must be >= 1, got {det_space_cap}")
-    if max_slack < 0:
-        raise ValueError(f"max_slack must be >= 0, got {max_slack}")
-    if max_ii is not None and max_ii < 1:
-        raise ValueError(f"max_ii must be >= 1, got {max_ii}")
-    if time_budget_s <= 0:
-        raise ValueError("time_budget_s must be > 0")
+    opts = CompileOptions(**kwargs)
+    opts.validate()
     return _map_dfg_impl(
-        dfg, cgra,
-        max_ii=max_ii, max_slack=max_slack, connectivity=connectivity,
-        backend=backend, space_backend=space_backend,
-        time_budget_s=time_budget_s, space_timeout_s=space_timeout_s,
-        space_polish_timeout_s=space_polish_timeout_s,
-        space_timeout_growth=space_timeout_growth,
-        det_space_cap=det_space_cap,
-        max_retries_per_window=max_retries_per_window,
-        window_timeout_s=window_timeout_s,
-        max_register_pressure=max_register_pressure,
-        max_route_hops=max_route_hops, deterministic=deterministic,
-        use_cache=use_cache, cache_dir=cache_dir,
-        window_offset=window_offset, window_stride=window_stride,
-        should_stop=should_stop, seed=seed,
+        dfg, cgra, should_stop=should_stop, **opts.mapper_kwargs()
     )
 
 
@@ -533,11 +528,11 @@ def _map_dfg_impl(
       always preferred. 0 (the default) is the paper's direct-only behaviour,
       bit-identical to previous releases.
     * ``space_backend`` picks the placement engine (DESIGN.md §13):
-      ``"exact"`` is the paper's complete bitset search and ``"auto"``
-      (default) resolves to it up to ``AUTO_EXACT_MAX_PES`` (400) PEs. The
-      annealing engine the JAX package uses above that is not ported yet:
-      ``"anneal"``, or ``"auto"`` on a larger fabric, raises
-      ``SpaceBackendNotPorted``. ``space_timeout_s`` /
+      ``"exact"`` is the paper's complete bitset search, ``"anneal"`` the
+      clustered simulated-annealing engine for very large fabrics, and
+      ``"auto"`` (default) sizes the choice to the fabric — exact up to
+      ``AUTO_EXACT_MAX_PES`` (400) PEs, anneal above, with an exact-engine
+      rescue leg on deep portfolio rounds. ``space_timeout_s`` /
       ``space_polish_timeout_s`` / ``space_timeout_growth`` shape the
       per-call wall caps (polish dives get
       ``max(space_polish_timeout_s, space_timeout_s)``; fresh rounds grow as
@@ -549,10 +544,11 @@ def _map_dfg_impl(
       ignored, both mapping caches are bypassed (process/disk history must not
       leak into results), and the backend must be (or ``"auto"``-resolve to)
       the cp backend — z3 cannot honor step budgets.
-    * ``cache_dir`` (or ``$REPRO_CACHE_DIR``) names the JAX package's
-      persistent on-disk mapping cache (DESIGN.md §9), which is not ported
-      yet: setting either raises ``NotImplementedError``. ``use_cache``
-      switches the in-process LRU.
+    * ``cache_dir`` layers the persistent on-disk mapping cache (DESIGN.md §9)
+      under the in-process LRU: memory first, disk second, solve last; a disk
+      hit is promoted to memory and solved mappings are written to both.
+      Defaults to ``$REPRO_CACHE_DIR`` when set; ``use_cache=False`` disables
+      both layers.
     * ``window_offset`` / ``window_stride`` restrict the sweep to every
       ``stride``-th window of the canonical ``ii_slack_windows`` order — the
       striping used by the service layer to race one search across worker
@@ -567,12 +563,6 @@ def _map_dfg_impl(
         )
     if max_route_hops < 0:
         raise ValueError(f"max_route_hops must be >= 0, got {max_route_hops}")
-    if cache_dir is not None or os.environ.get("REPRO_CACHE_DIR"):
-        raise NotImplementedError(
-            "the persistent mapping cache (cache_dir / $REPRO_CACHE_DIR) is "
-            "not ported to repro_torch yet (a later slice of the port, see "
-            "ROADMAP.md)"
-        )
     if deterministic:
         # the bounded/reproducible contract only holds on the cp backend (z3
         # cannot honor step budgets), and only when process history cannot
@@ -588,10 +578,17 @@ def _map_dfg_impl(
     # resolve now so a bad backend name raises here instead of being
     # swallowed by the per-window infeasibility handler below
     backend = resolve_backend_name(backend)
-    # "auto" is fabric-sized (DESIGN.md §13.3); a fabric the exact engine
-    # does not cover raises here rather than falling back
+    # "auto" is fabric-sized (exact <= AUTO_EXACT_MAX_PES PEs, anneal above,
+    # DESIGN.md §13.3); remember the request so auto-on-large can still fall
+    # back to the exact engine on deep rounds without surprising a caller
+    # who *asked* for anneal
+    space_auto = space_backend == "auto"
     space_backend = resolve_space_backend_name(space_backend, cgra)
     space_engine = create_space_backend(space_backend)
+    exact_fallback = (
+        create_space_backend("exact")
+        if space_auto and space_backend != "exact" else None
+    )
     stats = MapperStats()
     stats.space_backend = space_backend
 
@@ -626,6 +623,7 @@ def _map_dfg_impl(
         return bool(_pressure_offenders(mapping, max_register_pressure))
 
     base_key = None
+    disk = None
     if use_cache:
         base_key = _cache_base_key(
             dfg, cgra, connectivity, max_register_pressure, max_route_hops,
@@ -648,6 +646,47 @@ def _map_dfg_impl(
             _cache_drop(base_key, ii)   # invalid/oversubscribed: never serve
         if not stats.mem_cache_hits:
             obs.event("cache.memory.miss", kernel=dfg.name)
+        # memory missed: consult the persistent layer (DESIGN.md §9).
+        # Function-local import by design: service/batch.py imports this
+        # module at top level, so a module-level import here would close an
+        # import cycle — keep any future service imports lazy like this one.
+        from .service.cache import DiskMappingCache, resolve_cache_dir
+
+        resolved = resolve_cache_dir(cache_dir)
+        if resolved is not None:
+            disk = DiskMappingCache(resolved)
+            lo = stats.m_ii
+            stats.disk_cache_lookups += 1
+            while True:
+                dhit = disk.get(base_key, lo, hi)
+                if dhit is None:
+                    obs.event("cache.disk.miss", kernel=dfg.name)
+                    break
+                ii, t_abs, placement, routes_spec = dhit
+                try:
+                    mapping = _rebuild_mapping(dfg, cgra, ii, t_abs,
+                                               placement, routes_spec)
+                    invalid = bool(timed_validate(mapping)) or pressure_reject(
+                        mapping
+                    )
+                except (ValueError, IndexError):
+                    invalid = True      # routes don't splice onto this DFG
+                if invalid:
+                    # schema-valid but semantically invalid: drop it so it
+                    # cannot poison every future cold lookup, try higher IIs
+                    disk.invalidate(base_key, ii)
+                    lo = ii + 1
+                    continue
+                _cache_put(base_key, mapping)          # promote to memory
+                stats.disk_cache_hit = True
+                stats.disk_cache_hits += 1
+                stats.disk_cache_promotions += 1
+                obs.event("cache.disk.hit", kernel=dfg.name, ii=ii)
+                obs.event("cache.disk.promote", kernel=dfg.name, ii=ii)
+                stats.final_ii = ii
+                stats.backend = "disk-cache"
+                stats.total_s = _time.perf_counter() - start
+                return MapResult(mapping, stats)
 
     windows = [
         _Window(ii, s)
@@ -666,6 +705,7 @@ def _map_dfg_impl(
     solvers: list[TimeSolver] = []
     best: Mapping | None = None
     polish_left = 0
+    produced_by = space_backend      # engine that placed the current best
 
     def out_of_time() -> bool:
         if should_stop is not None and should_stop():
@@ -681,8 +721,12 @@ def _map_dfg_impl(
             if errs:  # defensive: should be impossible
                 raise AssertionError(f"mapper produced invalid mapping: {errs}")
             stats.final_ii = mapping.ii
+            stats.space_backend = produced_by
             if use_cache:
                 _cache_put(base_key, mapping)
+                if disk is not None:
+                    disk.put(base_key, mapping.ii, mapping.t_abs,
+                             mapping.placement, routes=mapping.routes_spec())
         return MapResult(mapping, stats, reason=reason)
 
     def try_space(
@@ -704,6 +748,7 @@ def _map_dfg_impl(
         sol: TimeSolution, w: _Window, rnd: int,
         node_budget: int, restarts: int, salt: int = 0,
     ) -> Mapping | None:
+        nonlocal produced_by
         sstats = SpaceStats()
         if deterministic:
             timeout = None
@@ -712,6 +757,15 @@ def _map_dfg_impl(
         else:
             timeout = space_timeout_s * (1 + space_timeout_growth * rnd)
         space = None
+        # portfolio per (II, slack, fabric size): the resolved engine leads;
+        # when "auto" resolved to anneal (very large fabric), deep rounds add
+        # an exact-engine rescue leg — anneal is incomplete, and by round 2 a
+        # partition that keeps failing has earned a complete search. Small
+        # fabrics never take the extra leg, keeping the historical path
+        # bit-identical.
+        engines = [space_engine]
+        if exact_fallback is not None and rnd >= 2:
+            engines.append(exact_fallback)
         # escalation order (DESIGN.md §12.4): direct first, then one more
         # allowed hop per level — route-throughs are only spent when no
         # tighter embedding of this partition is found. hops == 0 takes the
@@ -720,23 +774,27 @@ def _map_dfg_impl(
         # a partition can never spend more than the historical cap in total.
         if timeout is not None and max_route_hops:
             timeout /= max_route_hops + 1
-        for hops in range(max_route_hops + 1):
-            space = space_engine.place(
-                dfg, cgra, sol.labels, w.ii,
-                budget=SpaceBudget(
-                    timeout_s=timeout,
-                    node_budget=node_budget,
-                    restarts=restarts,
-                ),
-                seed=seed * 8191 + rnd * 127 + w.slack * 17 + salt,
-                stats=sstats,
-                should_stop=should_stop,
-                **(
-                    {} if hops == 0
-                    else {"t_abs": sol.t_abs, "max_route_hops": hops}
-                ),
-            )
+        for engine in engines:
+            for hops in range(max_route_hops + 1):
+                space = engine.place(
+                    dfg, cgra, sol.labels, w.ii,
+                    budget=SpaceBudget(
+                        timeout_s=timeout,
+                        node_budget=node_budget,
+                        restarts=restarts,
+                    ),
+                    seed=seed * 8191 + rnd * 127 + w.slack * 17 + salt,
+                    stats=sstats,
+                    should_stop=should_stop,
+                    **(
+                        {} if hops == 0
+                        else {"t_abs": sol.t_abs, "max_route_hops": hops}
+                    ),
+                )
+                if space is not None:
+                    break
             if space is not None:
+                produced_by = engine.name
                 break
         stats.space_phase_s += sstats.search_time_s
         stats.space_nodes_visited += sstats.nodes_visited

@@ -3,16 +3,14 @@
 The space phase — embed a time-labelled DFG into the MRRG — is pluggable,
 mirroring the time phase's ``time_backends`` registry: a backend is anything
 with a ``place`` method turning one label partition into a
-:class:`SpaceSolution` (or None within its budget). One engine registers
+:class:`SpaceSolution` (or None within its budget). Two engines register
 here:
 
 * ``exact`` (space_backends/exact.py) — the paper's bitset monomorphism
   search, complete up to its node budget; the quality anchor.
-
-The JAX package's ``anneal`` engine (clustered placement + simulated
-annealing for fabrics above :data:`AUTO_EXACT_MAX_PES` PEs) is not ported
-yet: asking for it, or for ``auto`` on such a fabric, raises
-:class:`SpaceBackendNotPorted` instead of falling back to another engine.
+* ``anneal`` (space_backends/anneal.py) — clustered placement + simulated
+  annealing for very large fabrics (50×50 and beyond), where the exact
+  engine's word width makes each visited node expensive.
 
 This module also hosts what every backend shares: the solution/stats
 datatypes, the placement validators (``check_monomorphism``/
@@ -36,13 +34,6 @@ from ..time_backends.base import mov_slot_headroom
 #: ones use the annealing backend, whose per-move cost does not grow with
 #: the bitmask word width. 400 = the 20×20 grid of the paper's Fig. 5 sweep.
 AUTO_EXACT_MAX_PES = 400
-
-#: Engines of the JAX package that this package does not carry yet.
-NOT_PORTED = ("anneal",)
-
-
-class SpaceBackendNotPorted(NotImplementedError):
-    """The request resolves to a space engine this package lacks."""
 
 
 @dataclass(frozen=True)
@@ -138,13 +129,7 @@ def resolve_space_backend_name(name: str, cgra: CGRA | None = None) -> str:
             raise ValueError(
                 "resolving the 'auto' space backend needs the target CGRA"
             )
-        name = "exact" if cgra.num_pes <= AUTO_EXACT_MAX_PES else "anneal"
-    if name in NOT_PORTED:
-        raise SpaceBackendNotPorted(
-            f"space backend {name!r} is not ported to repro_torch yet "
-            f"(a later slice of the port, see ROADMAP.md); the exact engine "
-            f"covers fabrics of at most {AUTO_EXACT_MAX_PES} PEs"
-        )
+        return "exact" if cgra.num_pes <= AUTO_EXACT_MAX_PES else "anneal"
     name = _ALIASES.get(name, name)
     if name not in _REGISTRY:
         raise ValueError(f"unknown space backend {name!r}")

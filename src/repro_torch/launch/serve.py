@@ -12,8 +12,14 @@ dense family (qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), full size or
       --reduced --device cpu --requests 16 --batch 4 --prompt-len 32 --gen 16
 
 Weights are random, from a ``torch.Generator`` seeded by ``--seed``.
-``--premap-kernels`` (a boot-time warm-up of the CGRA mapping cache) needs
-the compiler API and service layer, which are not ported yet, and raises.
+
+``--premap-kernels SIZE`` warms the node before serving: the CGRA kernel
+suite is batch-compiled onto a SIZE×SIZE grid through the compiler API
+(``repro_torch.api.Compiler.compile_batch``, "fast" profile), against the
+persistent mapping cache (``--cache-dir`` / ``$REPRO_CACHE_DIR``). A warm
+restart then boots without re-solving a single mapping (DESIGN.md §8). The
+premap runs first in ``main``, before anything touches CUDA, so the
+compile pool forks from a process without a CUDA context.
 """
 
 from __future__ import annotations
@@ -45,6 +51,27 @@ def serve_batch(spec, params, prompts: np.ndarray, gen: int, cache_len: int) -> 
     return torch.cat(out, dim=1).cpu().numpy()
 
 
+def premap_kernels(size: int, jobs: int, cache_dir: str | None) -> None:
+    """Boot-time warm-up: batch-map the kernel suite via the compiler API."""
+    from ..api import Compiler, resolve_options
+    from ..core.benchsuite import load_suite
+    from ..core.cgra import CGRA
+
+    compiler = Compiler(
+        CGRA(size, size),
+        resolve_options("fast", jobs=jobs, deadline_s=30.0,
+                        cache_dir=cache_dir),
+    )
+    batch = compiler.compile_batch(list(load_suite().values()))
+    c = batch.cache_counters
+    print(
+        f"premap: {len(batch)} kernels on {compiler.cgra} in "
+        f"{batch.wall_s:.2f}s ({batch.num_workers} workers) — "
+        f"{c['solved']} solved, {c['memory_hits'] + c['disk_hits']} cache "
+        f"hits, {c['failed']} failed"
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -56,14 +83,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
-    ap.add_argument("--premap-kernels", type=int, default=0, metavar="SIZE",
-                    help="not ported yet: raises if set")
+    ap.add_argument(
+        "--premap-kernels", type=int, default=0, metavar="SIZE",
+        help="before serving, batch-compile the CGRA kernel suite onto a "
+             "SIZE×SIZE grid (0 = skip)",
+    )
+    ap.add_argument("--premap-jobs", type=int, default=2)
+    ap.add_argument(
+        "--cache-dir", default=None,
+        help="persistent mapping cache for --premap-kernels "
+             "(default: $REPRO_CACHE_DIR)",
+    )
     args = ap.parse_args(argv)
 
     if args.premap_kernels:
-        raise NotImplementedError(
-            "--premap-kernels needs the compiler API and service layer, not "
-            "ported yet (ROADMAP queue 1 item 5)")
+        premap_kernels(args.premap_kernels, args.premap_jobs, args.cache_dir)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

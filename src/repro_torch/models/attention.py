@@ -33,7 +33,7 @@ from ..kernels.flash_attention import flash_attention_padded
 from .layers import dense_param, rms_norm, rope, softcap
 
 #: where the model-zoo parts not ported yet are queued
-NOT_PORTED = "ROADMAP queue 1 item 3 (MLA, MoE and the other families)"
+NOT_PORTED = 'ROADMAP queue 1, "MLA, MoE and the other LM families"'
 
 
 class KVCache(NamedTuple):

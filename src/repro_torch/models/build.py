@@ -12,7 +12,8 @@ the training loss.
 
 Not ported yet, and raising ``NotImplementedError`` when a config asks for
 them: MoE stacks, multi-token prediction (``mtp``), meta tokens,
-prefix-LM masking and frontends (ROADMAP queue 1 item 3).
+prefix-LM masking and frontends (ROADMAP queue 1, "MLA, MoE and the other
+LM families").
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ compute them in float64). The update is functional: it returns new
 parameters and moments and leaves its inputs as they are.
 
 The reference's ZeRO-1 moment sharding (``moment_shardings``,
-``build_opt_shardings``) waits for the sharding slice (ROADMAP queue 1
-item 7).
+``build_opt_shardings``) waits for the sharding slice (ROADMAP queue 1,
+"Sharding and the distributed substrate").
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ compression noise is unbiased over steps (Seide et al. / EF-SGD family).
 scales equal the reference's.
 
 ``compressed_psum_mean`` (the int8 all-gather over a slow mesh axis) waits
-for the sharding slice (ROADMAP queue 1 item 7).
+for the sharding slice (ROADMAP queue 1, "Sharding and the distributed
+substrate").
 """
 
 from __future__ import annotations

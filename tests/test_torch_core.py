@@ -14,6 +14,7 @@ import pytest
 
 from repro.core import CGRA as JCGRA
 from repro.core import map_dfg as jmap_dfg
+from repro.core.mapper import clear_mapping_cache as jclear_mapping_cache
 from repro.core import running_example as jrunning_example
 from repro.core.benchsuite import load_suite as jload_suite
 from repro.core.benchsuite import route_stress_dfg as jroute_stress_dfg
@@ -21,9 +22,11 @@ from repro.core.dfg import splice_routes as jsplice_routes
 from repro.core.simulate import check_equivalence as jcheck_equivalence
 from repro.core.simulate import interpret_dfg as jinterpret_dfg
 from repro.core.simulate import register_pressure_by_pe as jregister_pressure_by_pe
+from repro.core.space_backends import resolve_space_backend_name as jresolve_space_backend_name
 from repro.core.time_backends import BackendUnavailable as JBackendUnavailable
 from repro.core.time_backends import available_backends as javailable_backends
 from repro_torch.core import CGRA, DFG, map_dfg, running_example
+from repro_torch.core.mapper import clear_mapping_cache
 from repro_torch.core.benchsuite import TABLE3_BENCHMARKS, load_suite, route_stress_dfg
 from repro_torch.core.dfg import splice_routes
 from repro_torch.core.simulate import (
@@ -31,7 +34,7 @@ from repro_torch.core.simulate import (
     interpret_dfg,
     register_pressure_by_pe,
 )
-from repro_torch.core.space_backends import SpaceBackendNotPorted
+from repro_torch.core.space_backends import resolve_space_backend_name
 from repro_torch.core.time_backends import BackendUnavailable, available_backends
 from repro_torch.interop import mapping_from_plain, plain_mapping
 
@@ -126,7 +129,21 @@ def test_interop_rejects_an_invalid_mapping():
         mapping_from_plain(plain)
 
 
-def test_unported_backends_raise():
+def _cache_files(root):
+    """{relative path: parsed JSON} of every entry under a disk cache."""
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for fn in files:
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                out[os.path.relpath(path, root)] = json.load(f)
+    return out
+
+
+def test_unported_backends_raise(tmp_path):
+    """What the reference lacks (z3 here) raises alike in both packages;
+    the anneal engine and the disk cache, which the port now carries, act
+    as in the reference (exact equality throughout)."""
     dfg, cgra = running_example(), CGRA(2, 2)
     # z3 is registered as in the reference, which is where its absence shows
     assert available_backends() == javailable_backends() == {"cp": True, "z3": False}
@@ -134,12 +151,29 @@ def test_unported_backends_raise():
         map_dfg(dfg, cgra, backend="z3")
     with pytest.raises(JBackendUnavailable, match="^time backend 'z3' is not importable$"):
         jmap_dfg(jrunning_example(), JCGRA(2, 2), backend="z3")
-    with pytest.raises(SpaceBackendNotPorted, match="not ported"):
-        map_dfg(dfg, cgra, space_backend="anneal")
-    with pytest.raises(SpaceBackendNotPorted):
-        map_dfg(dfg, CGRA(21, 20))          # auto above 400 PEs
-    with pytest.raises(NotImplementedError, match="cache"):
-        map_dfg(dfg, cgra, cache_dir="somewhere")
+    mine = map_dfg(dfg, cgra, space_backend="anneal", deterministic=True,
+                   use_cache=False)
+    ref = jmap_dfg(jrunning_example(), JCGRA(2, 2), space_backend="anneal",
+                   deterministic=True, use_cache=False)
+    assert mine.ok and ref.ok and mine.stats.space_backend == "anneal"
+    assert (mine.mapping.ii, mine.mapping.t_abs, mine.mapping.placement) == (
+        ref.mapping.ii, ref.mapping.t_abs, ref.mapping.placement)
+    for rows, cols, want in ((20, 20, "exact"), (21, 20, "anneal")):
+        # auto is fabric-sized: exact up to 400 PEs, anneal above
+        assert resolve_space_backend_name("auto", CGRA(rows, cols)) == want
+        assert jresolve_space_backend_name("auto", JCGRA(rows, cols)) == want
+    mine_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    clear_mapping_cache()
+    jclear_mapping_cache()
+    mine = map_dfg(dfg, cgra, cache_dir=str(mine_dir))
+    ref = jmap_dfg(jrunning_example(), JCGRA(2, 2), cache_dir=str(ref_dir))
+    assert mine.ok and ref.ok
+    assert mine.stats.disk_cache_lookups == ref.stats.disk_cache_lookups == 1
+    files = _cache_files(mine_dir)
+    assert len(files) == 1 and sorted(files) == sorted(_cache_files(ref_dir))
+    (entry,) = files.values()
+    assert entry["ii"] == mine.mapping.ii
+    assert entry["placement"] == mine.mapping.placement
 
 
 @pytest.mark.parametrize("z3_available", [True, False])
@@ -156,10 +190,30 @@ def test_auto_time_backend_resolves_as_in_the_reference(monkeypatch, z3_availabl
     assert base.available_backends() == jbase.available_backends()
 
 
-def test_cache_dir_from_environment_raises(monkeypatch):
-    monkeypatch.setenv("REPRO_CACHE_DIR", "somewhere")
-    with pytest.raises(NotImplementedError, match="REPRO_CACHE_DIR"):
-        map_dfg(running_example(), CGRA(2, 2))
+def test_cache_dir_from_environment_raises(monkeypatch, tmp_path):
+    """``$REPRO_CACHE_DIR`` is honoured as in the reference: the first
+    compile writes the entry, a compile after the LRU is cleared is served
+    from disk, and both packages write the same files."""
+    dfg = load_suite(["gsm"])["gsm"]
+    jdfg = jload_suite(["gsm"])["gsm"]
+    layouts = []
+    for tag, fn, clear, graph, grid in (
+            ("port", map_dfg, clear_mapping_cache, dfg, CGRA(4, 4)),
+            ("ref", jmap_dfg, jclear_mapping_cache, jdfg, JCGRA(4, 4))):
+        root = tmp_path / tag
+        monkeypatch.setenv("REPRO_CACHE_DIR", str(root))
+        clear()
+        cold = fn(graph, grid)
+        assert cold.ok and not cold.stats.disk_cache_hit
+        clear()
+        warm = fn(graph, grid)
+        assert warm.stats.disk_cache_hit and warm.stats.backend == "disk-cache"
+        assert (warm.mapping.ii, warm.mapping.placement) == (
+            cold.mapping.ii, cold.mapping.placement)
+        layouts.append(sorted(_cache_files(root)))
+    clear_mapping_cache()
+    jclear_mapping_cache()
+    assert layouts[0] == layouts[1] and len(layouts[0]) == 1
 
 
 def test_map_dfg_keyword_checks():

@@ -79,6 +79,48 @@ def test_kernel_rejects_bad_input(cuda):
         cgra_sim(tables, x.transpose(1, 2).contiguous().transpose(1, 2))
 
 
+def test_compile_pool_forks_after_cuda(cuda, tmp_path):
+    """The compile pool forks (the default context on Linux) from a process
+    that already holds a CUDA context; the workers never touch CUDA, so
+    every job comes back, and a second pool reads what the first wrote."""
+    from repro_torch.api import Compiler, resolve_options
+    from repro_torch.core.mapper import clear_mapping_cache
+
+    x = torch.ones(4, device=cuda) * 2
+    torch.cuda.synchronize()
+    suite = list(load_suite(["bitcount", "fft", "gsm", "aes"]).values())
+    comp = Compiler(CGRA(4, 4), resolve_options("fast", jobs=2, deadline_s=30.0,
+                                                cache_dir=str(tmp_path)))
+    cold = comp.compile_batch(suite)
+    assert cold.ok and cold.num_workers == 2 and cold.cache_counters["solved"] == 4
+    clear_mapping_cache()
+    warm = comp.compile_batch(suite)
+    assert warm.ok and warm.cache_counters["disk_hits"] == 4
+    assert float(x.sum()) == 8.0                 # the parent's context still works
+
+
+def test_anneal_50x50_mapping_runs_on_the_card(cuda):
+    """A mapping of the annealing engine on the 2500-PE preset, through the
+    API, executed by the kernel: equal to the plain version and the oracle."""
+    from repro_torch.api import Compiler
+
+    res = Compiler("mesh_50x50", "deterministic-ci").compile(
+        load_suite(["backprop"])["backprop"])
+    assert res.ok and res.space_backend == "anneal"
+    prog = compile_program(res.mapping)
+    num_iters, batch = 6, 300
+    rng = np.random.default_rng(0)
+    inputs = {v: rng.uniform(-4, 4, (num_iters, batch)).astype(np.float32)
+              for v in prog.input_nodes()}
+    _, trace = cgra_run(prog, inputs, num_iters)
+    tables = prog.sim_tables().to(cuda)
+    x = torch.stack([torch.as_tensor(inputs[v], device=cuda)
+                     for v in prog.input_nodes()])
+    assert torch.equal(trace, cgra_sim_torch(tables, x))
+    _, ref = cgra_sim_reference(prog, inputs, num_iters, lanes=[0, 7, 299])
+    np.testing.assert_array_equal(trace[:, :, [0, 7, 299]].cpu().numpy(), ref)
+
+
 # --------------------------------------------------------- flash attention
 
 def _qkv(b, hq, hkv, s, d, dtype, device, seed=0):

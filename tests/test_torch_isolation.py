@@ -53,6 +53,37 @@ def test_main_path_runs_without_jax_or_the_jax_package():
     assert "MAIN_PATH_OK" in proc.stdout
 
 
+_API_PATH = r'''
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+import tempfile
+from repro_torch.api import Compiler, resolve_options
+from repro_torch.core import CGRA
+from repro_torch.core.benchsuite import load_suite
+import repro_torch.compile
+# the mapper's host stack never loads torch, so its pool forks from a
+# process without a CUDA context
+assert "torch" not in sys.modules
+with tempfile.TemporaryDirectory() as d:
+    comp = Compiler(CGRA(4, 4), resolve_options("fast", jobs=2, cache_dir=d))
+    batch = comp.compile_batch(list(load_suite(["bitcount", "fft"]).values()))
+    assert batch.ok and batch.num_workers == 2, batch.as_dict()
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro", "torch")) and sys.modules[m] is not None]
+assert not bad, bad
+print("API_PATH_OK")
+'''
+
+
+def test_api_path_runs_without_jax_the_jax_package_or_torch():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _API_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "API_PATH_OK" in proc.stdout
+
+
 _SERVE_PATH = r'''
 import sys
 for name in ("jax", "jaxlib", "repro"):

@@ -244,15 +244,38 @@ def test_serve_main_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("name", [n for n in ARCH_NAMES if get_config(n).family != "dense"])
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="MLA, MoE and the other LM families"):
         build_model(get_config(name).reduced())
 
 
-def test_mla_premap_and_offset_prefill_raise():
+def test_mla_premap_and_offset_prefill_raise(tmp_path, capsys):
+    """MLA still raises; ``--premap-kernels`` premaps the suite, before
+    serving, as the reference does, into a disk cache from which the
+    reference then serves every kernel the port mapped (exact counts; a
+    kernel that misses the fast profile's 30 s deadline on a loaded host
+    counts as failed in both runs)."""
+    import re
+
+    from repro.launch.serve import premap_kernels as jpremap_kernels
+
+    def counts(out):
+        m = re.search(r"premap: 17 kernels on CGRA\(4x4,mesh\) in .* — "
+                      r"(\d+) solved, (\d+) cache hits, (\d+) failed", out)
+        assert m, out
+        return tuple(int(g) for g in m.groups())
+
     with pytest.raises(NotImplementedError, match="MLA"):
         attention.mla_attention(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="premap"):
-        serve.main(["--arch", "qwen3-0.6b", "--reduced", "--premap-kernels", "4"])
+    cache = str(tmp_path / "maps")
+    serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                "--premap-kernels", "4", "--cache-dir", cache,
+                "--requests", "1", "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    out = capsys.readouterr().out
+    assert out.index("premap:") < out.index("batch done")
+    solved, hits, failed = counts(out)
+    assert hits == 0 and solved + failed == 17 and solved >= 12
+    jpremap_kernels(4, 2, cache)
+    assert counts(capsys.readouterr().out)[1] == solved
 
 
 def test_cuda_default_raises_without_a_gpu():
