@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU and the CUDA
 toolkit (``nvcc``); it builds the port's CUDA kernels into ``build/`` first.
-It drives the port's three paths through the entry points a user calls — map
-a loop with the port's mapper, lower it and execute it batched through the
+It drives the port's paths through the entry points a user calls — map
+a loop with the port's mapper (directly, through the compiler API or through
+the compile daemon), lower it and execute it batched through the
 hand-written ``cgra_sim`` kernel; serve qwen3-0.6b at full width with its
 prefill attention in the hand-written ``flash_attention`` kernel; train
 qwen3-0.6b at full width with attention's forward and gradient in the
@@ -86,6 +87,24 @@ fails (non-zero exit, no result line) if any phase fails:
    suite on the heterogeneous ``satmapit_edge_mem_4x4`` preset mapped and
    executed; ``examples/quickstart_torch.py`` run on the card. cgra_sim
    launches are counted over the phase's executions alone.
+13. compile daemon, tracing frontend, fuzz generator and stage placement:
+   ``python -m repro_torch.daemon serve`` (a subprocess, 4 worker threads,
+   20x20, fast profile, a fresh cache and trace directory under ``build/``,
+   the socket in a short temporary directory) answers ping, then the suite
+   from 26 client threads at once (hotspot3D, backprop and aes from 4 each):
+   every row ok, every request accounted for by solves, warm hits and
+   coalescing, no kernel solved twice, a clean shutdown and rotated trace
+   segments that ``tools/trace_report.py`` reads; a warm
+   ``repro_torch.api.Compiler`` on the daemon's cache (17 disk hits, the
+   daemon's IIs), each mapping executed at 16384 x 64 as in phase 12. Three
+   loops traced by ``repro_torch.core.frontend.trace_loop`` (a
+   multiply-accumulate, whose stores equal a numpy running sum, a mixed-op
+   body and one with every overloaded operator) mapped on 20x20 and executed
+   at the same size. ``random_dfg`` seeds 0-203 on ``tests/
+   test_differential.py``'s three fabrics, mapped deterministically by the
+   exact engine and executed at 4096 x 32: each trace equals the plain
+   version and 8 lanes the oracle. ``examples/pipeline_placement_torch.py``.
+   cgra_sim launches are counted over the phase alone.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -102,6 +121,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -117,6 +137,9 @@ from repro_torch.api import Compiler, resolve_options  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import CGRA, DFG, Edge, map_dfg, op_class, running_example  # noqa: E402
 from repro_torch.core.benchsuite import load_suite  # noqa: E402
+from repro_torch.core.daemon import DaemonClient, DaemonError  # noqa: E402
+from repro_torch.core.frontend import trace_loop  # noqa: E402
+from repro_torch.core.fuzz import random_dfg  # noqa: E402
 from repro_torch.core.dfg import OP_ARITY  # noqa: E402
 from repro_torch.core.mapper import clear_mapping_cache  # noqa: E402
 from repro_torch.core.simulate import check_equivalence, interpret_dfg  # noqa: E402
@@ -206,6 +229,35 @@ LARGE_PRESET = "mesh_50x50"
 LARGE_KERNELS = ("heartwall", "backprop")     # heartwall: BENCH_scale.json's kernel
 LANE_CHUNK = 1024      # lanes of the plain version held at once at 50x50
 HETERO_PRESET = "satmapit_edge_mem_4x4"
+
+DAEMON_WORKERS = 4
+# The daemon's worker threads share one interpreter, so a cold stampede
+# time-slices the searches, and the fast profile's wall budget per request
+# (20 s) assumes a solve has a core to itself. With z3 as the time backend
+# (``auto`` takes it where it is importable, as on the GPU machine) four
+# threads at once left hotspot3D and cfd unmapped even with 90 s (PERF.md
+# §7). The daemon is therefore started on the incremental CP time backend,
+# with this budget per request.
+DAEMON_BACKEND = "cp"
+DAEMON_BUDGET_S = 90.0
+# each of these goes out from DAEMON_DUP_CLIENTS clients at once, the rest
+# of the suite from one client each: 26 client threads
+DAEMON_DUPLICATED = ("hotspot3D", "backprop", "aes")
+DAEMON_DUP_CLIENTS = 4
+DAEMON_ROTATE = 8          # worker-run requests per rotated trace segment
+DAEMON_START_S = 60.0      # the daemon must answer ping within this
+DAEMON_REQUEST_S = 300.0   # a client's socket timeout
+# the traced multiply-accumulate against a numpy running sum of a*b in f32
+MAC_RTOL = 1e-5
+# tests/test_differential.py's fabrics and deterministic mapper budgets
+FUZZ_SEEDS = 204
+FUZZ_FABRICS = (("mesh3x3", dict(rows=3, cols=3)),
+                ("torus4x4", dict(rows=4, cols=4, topology="torus")),
+                ("onehop4x4", dict(rows=4, cols=4, topology="one-hop")))
+FUZZ_MAP_KW = dict(deterministic=True, use_cache=False, det_space_cap=4000,
+                   max_retries_per_window=1, max_slack=1)
+FUZZ_BATCH = 4096
+FUZZ_ITERS = 32
 
 
 def log(*parts) -> None:
@@ -1190,18 +1242,21 @@ def cache_entries(root: Path) -> dict:
     return entries
 
 
-def run_mapping(name: str, mapping, map_s: float) -> None:
+def run_mapping(name: str, mapping, map_s: float) -> tuple[dict, dict]:
     """Lower ``mapping``, execute it through ``cgra_run`` at full size and
     hold the trace against the plain version and the oracle (phase 4's
-    check); the trace is freed before the next one."""
+    check); the trace is freed before the next one. Returns the input
+    streams and the store streams, on the host."""
     prog = compile_program(mapping)
     inputs = seeded_inputs(prog, FULL_ITERS, FULL_BATCH, seed=1)
     outs, trace = cgra_run(prog, inputs, FULL_ITERS, device="cuda")
     torch.cuda.synchronize()
     check_full(name, dict(prog=prog, inputs=inputs, outs=outs, trace=trace,
                           map_s=map_s))
+    stores = {v: out.cpu().numpy() for v, out in outs.items()}
     del outs, trace
     torch.cuda.empty_cache()
+    return inputs, stores
 
 
 def phase_api(smi: str) -> tuple[int, dict]:
@@ -1345,6 +1400,274 @@ def phase_api(smi: str) -> tuple[int, dict]:
     return launches, large_row
 
 
+# ----------------------------------------------------------------- phase 13
+
+def mac_body(ins, carried):
+    """tests/test_frontend.py's multiply-accumulate loop."""
+    acc = carried["acc"] + ins[0] * ins[1]
+    return [acc], {"acc": acc}
+
+
+def mixed_body(ins, carried):
+    """tests/test_frontend.py's mixed-op body with constants."""
+    x = (ins[0] + 2.0) * ins[1] - 1.0
+    y = abs(-x).min(100.0)
+    return [y], {}
+
+
+def all_ops_body(ins, carried):
+    """Every operator ``Var`` overloads (the bitwise ops, shifts, compare,
+    ``min``/``max``, the reflected ones), with a carried accumulator; every
+    divisor is at least 1, so the streams stay finite."""
+    a, b, c = ins
+    s = a + b
+    d = 1.5 - a
+    e = 2.0 + b
+    f = 3.0 * c
+    h = (s * d) / (abs(e) + 1.0)
+    i = (s & 255.0) | (b ^ c)
+    j = (i << 2.0) >> (a - 1.0)
+    k = -(~j)
+    n = k.min(h).max(f > h)
+    acc = carried["acc"] + n - f
+    return [acc, j], {"acc": acc}
+
+
+FRONTEND_BODIES = (("mac", mac_body, 2, ["acc"]), ("mixed", mixed_body, 2, []),
+                   ("all_ops", all_ops_body, 3, ["acc"]))
+
+
+def same_values(a, b) -> bool:
+    """``torch.equal`` that also takes NaN for NaN: random programs may
+    overflow, and the trace holds what the ALU gives there."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def run_fuzz_case(label: str, mapping, seed: int) -> int:
+    """Execute one fuzz mapping through ``cgra_run`` at FUZZ_BATCH x
+    FUZZ_ITERS: the trace equals the plain version and up to 8 sampled lanes
+    the oracle (NaN for NaN). A program without an input stream runs one
+    lane, as ``cgra_run`` defines it. Returns the lanes run."""
+    prog = compile_program(mapping)
+    inputs = seeded_inputs(prog, FUZZ_ITERS, FUZZ_BATCH, seed=seed)
+    _, trace = cgra_run(prog, inputs, FUZZ_ITERS, device="cuda")
+    batch = trace.shape[2]
+    check(tuple(trace.shape) == (prog.mapping.schedule_length + (FUZZ_ITERS - 1) * prog.ii,
+                                 prog.num_pes, FUZZ_BATCH if inputs else 1),
+          f"{label}: trace shape {tuple(trace.shape)}")
+    tables = prog.sim_tables().to("cuda")
+    x = (stacked(prog, inputs) if inputs
+         else torch.zeros((0, FUZZ_ITERS, 1), device="cuda"))
+    check(same_values(trace, cgra_sim_torch(tables, x)), f"{label}: kernel != plain version")
+    lanes = np.random.default_rng(seed).choice(batch, min(SAMPLED_LANES, batch),
+                                               replace=False)
+    _, ref = cgra_sim_reference(prog, inputs, FUZZ_ITERS, lanes=lanes if inputs else None)
+    got = trace[:, :, torch.as_tensor(lanes, device="cuda")].cpu().numpy()
+    check(np.array_equal(got, ref, equal_nan=True), f"{label}: sampled lanes != oracle")
+    return batch
+
+
+def wait_for_daemon(proc, sock: str) -> float:
+    """Poll ``DaemonClient.ping`` until the daemon answers; fails when the
+    deadline passes or the process exits. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        check(proc.poll() is None, f"daemon exited {proc.returncode} before answering")
+        try:
+            with DaemonClient(sock, timeout_s=5) as c:
+                if c.ping():
+                    return time.perf_counter() - t0
+        except DaemonError:
+            pass
+        check(time.perf_counter() - t0 < DAEMON_START_S,
+              f"daemon did not answer ping within {DAEMON_START_S} s")
+        time.sleep(0.1)
+
+
+def daemon_requests(names: list) -> list:
+    """The suite once, and each of DAEMON_DUPLICATED from DAEMON_DUP_CLIENTS
+    clients: one request per client thread."""
+    return [n for n in names if n not in DAEMON_DUPLICATED] + [
+        n for n in DAEMON_DUPLICATED for _ in range(DAEMON_DUP_CLIENTS)]
+
+
+def phase_daemon() -> int:
+    """The daemon, frontend, fuzz and placement paths (see the module
+    docstring, item 13). Returns cgra_sim's launches over the phase."""
+    t_phase = time.perf_counter()
+    suite = load_suite()
+    names = list(suite)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="daemon-", dir=ROOT / "build"))
+    cache_dir, trace_dir = work / "cache", work / "traces"
+    # AF_UNIX paths hold at most 107 bytes: the socket lives in a short
+    # temporary directory, not under a checkout that may lie deep
+    sock_dir = tempfile.mkdtemp(prefix="rtd-")
+    if len(sock_dir) > 80:
+        shutil.rmtree(sock_dir)
+        sock_dir = tempfile.mkdtemp(prefix="rtd-", dir="/tmp")
+    sock = os.path.join(sock_dir, "d.sock")
+    log_path = work / "serve.log"
+    proc = None
+    cgra_sim.launches = 0
+    try:
+        # (a) the daemon, started as its user starts it: a fresh process,
+        # so no CUDA state is forked
+        with open(log_path, "w") as serve_log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.daemon", "serve", "--socket", sock,
+                 "--rows", str(API_GRID), "--cols", str(API_GRID), "--profile", "fast",
+                 "--backend", DAEMON_BACKEND, "--time-budget-s", str(DAEMON_BUDGET_S),
+                 "--workers", str(DAEMON_WORKERS), "--cache-dir", str(cache_dir),
+                 "--trace-dir", str(trace_dir), "--rotate-every", str(DAEMON_ROTATE)],
+                env=env, cwd=ROOT, stdout=serve_log, stderr=subprocess.STDOUT)
+        up_s = wait_for_daemon(proc, sock)
+        requests = daemon_requests(names)
+        gate = threading.Barrier(len(requests))
+
+        def one(name):
+            with DaemonClient(sock, timeout_s=DAEMON_REQUEST_S) as c:
+                gate.wait(timeout=60)            # every client sends at once
+                return name, c.compile(suite[name], tenant=f"client-{name}")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            rows = list(pool.map(one, requests))
+        cold_s = time.perf_counter() - t0
+        bad = [(n, r["failure"], r["reason"]) for n, r in rows if not r["ok"]]
+        check(not bad, f"daemon rows failed: {bad}")
+        ii, solve_s = {}, {}
+        for n, r in rows:
+            check(ii.setdefault(n, r["ii"]) == r["ii"], f"{n}: duplicates differ in II")
+            solve_s[n] = r["wall_s"]
+        with DaemonClient(sock) as c:
+            stats = c.stats()
+        st = {k: stats[k] for k in ("submitted", "completed", "shed", "failed",
+                                    "coalesced", "cancelled_in_queue", "solves",
+                                    "warm_memory", "warm_disk")}
+        log(f"  daemon (python -m repro_torch.daemon serve, {DAEMON_WORKERS} workers, "
+            f"{API_GRID}x{API_GRID}, fast): up in {up_s:.2f} s; {len(requests)} requests "
+            f"from {len(requests)} clients at once ({len(DAEMON_DUPLICATED)} kernels x "
+            f"{DAEMON_DUP_CLIENTS}) in {cold_s:.2f} s; {st}")
+        log(f"    speculation (not gated): {stats['speculative']}")
+        # completed counts the requests a worker ran: a coalesced follower
+        # receives its leader's row and is never counted as completed
+        # (server.py: coalesced at admission, completed in
+        # _record_completion), so completed + coalesced == submitted
+        check(st["submitted"] == len(requests), f"daemon stats: {st}")
+        check(st["completed"] + st["coalesced"] == st["submitted"]
+              and st["shed"] == 0 and st["failed"] == 0 and st["cancelled_in_queue"] == 0,
+              f"daemon stats: {st}")
+        check(st["solves"] + st["warm_memory"] + st["warm_disk"] + st["coalesced"]
+              == st["submitted"], f"daemon stats do not account for every request: {st}")
+        check(st["solves"] <= len(names), f"daemon solved {st['solves']} times "
+              f"for {len(names)} kernels")
+        log("    II: " + ", ".join(f"{n} {ii[n]}" for n in names) + "; time backend "
+            + ", ".join(sorted({r["backend"] for _, r in rows})))
+        with DaemonClient(sock) as c:
+            check(c.shutdown(), "daemon refused shutdown")
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"daemon exited {rc}: {log_path.read_text()[-2000:]}")
+        check(not os.path.exists(sock), "the daemon left its socket behind")
+        segments = sorted(trace_dir.glob("trace-*.json"))
+        check(len(segments) >= 2, f"{len(segments)} trace segments rotated")
+        for seg in segments:
+            out = subprocess.run(
+                [sys.executable, str(ROOT / "tools" / "trace_report.py"), str(seg), "--check"],
+                capture_output=True, text=True, timeout=120)
+            check(out.returncode == 0, f"trace_report {seg.name}: {out.stdout}{out.stderr}")
+        spans = sum(len(json.loads(seg.read_text())["traceEvents"]) for seg in segments)
+        log(f"    shutdown: exit 0, socket removed; tools/trace_report.py --check read "
+            f"{len(segments)} rotated segments ({spans} events)")
+
+        # the daemon's cache serves a warm in-process session
+        clear_mapping_cache()
+        t0 = time.perf_counter()
+        comp = Compiler(CGRA(API_GRID, API_GRID),
+                        resolve_options("fast", cache_dir=str(cache_dir)))
+        warm = comp.compile_batch(list(suite.values()))
+        warm_s = time.perf_counter() - t0
+        c = warm.cache_counters
+        check(warm.ok and c["disk_hits"] == len(names) and c["solved"] == 0
+              and c["failed"] == 0, f"warm session on the daemon's cache: {c}")
+        for r in warm:
+            check(r.source == "disk" and r.ii == ii[r.name],
+                  f"{r.name}: warm {r.source} II {r.ii}, daemon II {ii[r.name]}")
+        log(f"    warm Compiler session on the daemon's cache: {c['disk_hits']} disk "
+            f"hits, {c['solved']} solved in {warm_s:.2f} s; IIs equal the daemon's")
+        for r in warm:
+            check_equivalence(r.mapping)
+            run_mapping(f"{r.name} (daemon)", r.mapping, solve_s[r.name])
+
+        # (b) the tracing frontend
+        for label, body, num_inputs, carried in FRONTEND_BODIES:
+            dfg = trace_loop(body, num_inputs=num_inputs, carried=carried, name=label)
+            t0 = time.perf_counter()
+            res = map_dfg(dfg, CGRA(*FULL_GRID), time_budget_s=30)
+            check(res.ok, f"traced {label} on {FULL_GRID}: {res.reason}")
+            check_equivalence(res.mapping)
+            inputs, stores = run_mapping(f"traced {label}", res.mapping,
+                                         time.perf_counter() - t0)
+            if label == "mac":
+                a, b = sorted(inputs)
+                want = np.cumsum(inputs[a] * inputs[b], axis=0, dtype=np.float32)
+                (got,) = stores.values()
+                err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+                check(np.allclose(got, want, rtol=MAC_RTOL, atol=0),
+                      f"traced mac != running sum of a*b (max rel {err})")
+                log(f"      mac stores == numpy running sum of a*b over all "
+                    f"{FULL_BATCH} lanes (max rel err {err}, tolerance {MAC_RTOL})")
+
+        # (c) the fuzz generator as a correctness harness for the kernel
+        t0 = time.perf_counter()
+        before = cgra_sim.launches
+        mapped, lanes_run, map_s = 0, 0, 0.0
+        for fabric, kw in FUZZ_FABRICS:
+            cgra = CGRA(**kw)
+            for seed in range(FUZZ_SEEDS):
+                label = f"fuzz seed={seed} fabric={fabric}"
+                t1 = time.perf_counter()
+                res = map_dfg(random_dfg(seed), cgra, space_backend="exact", **FUZZ_MAP_KW)
+                map_s += time.perf_counter() - t1
+                if not res.ok:
+                    continue
+                check(res.mapping.validate() == [], f"{label}: invalid mapping")
+                check_equivalence(res.mapping)
+                lanes_run += run_fuzz_case(label, res.mapping, seed)
+                mapped += 1
+        fuzz_s = time.perf_counter() - t0
+        cases = FUZZ_SEEDS * len(FUZZ_FABRICS)
+        launches = cgra_sim.launches
+        log(f"  fuzz: random_dfg seeds 0-{FUZZ_SEEDS - 1} on "
+            f"{', '.join(f for f, _ in FUZZ_FABRICS)} (exact, deterministic): {mapped} of "
+            f"{cases} cases mapped ({map_s:.1f} s on the host), each run at "
+            f"{FUZZ_BATCH} x {FUZZ_ITERS} ({lanes_run} lanes in all; "
+            f"{launches - before} cgra_sim launches) == plain == oracle in {fuzz_s:.1f} s")
+        want = len(names) + len(FRONTEND_BODIES) + mapped
+        check(launches == want, f"phase 13 launched cgra_sim {launches} times, not {want}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+    # (d) the placement example's twin
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "pipeline_placement_torch.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"pipeline_placement_torch.py exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    check(out.stdout.count("single-hop flows 100%") == 5,
+          "pipeline_placement_torch.py: a placement is not all single-hop")
+    log(f"  examples/pipeline_placement_torch.py: exit 0 "
+        f"({out.stdout.strip().splitlines()[-1][:100]}...)")
+    log(f"  cgra_sim launches in phase 13: {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -1418,12 +1741,18 @@ def main() -> int:
         f"B={FULL_BATCH}, num_iters={FULL_ITERS}")
     api_launches, _ = phase_api(smi)
 
+    log(f"[13] compile daemon, tracing frontend, fuzz generator and stage placement: "
+        f"the suite through python -m repro_torch.daemon on {API_GRID}x{API_GRID}, "
+        f"three traced loops, random_dfg seeds 0-{FUZZ_SEEDS - 1} on "
+        f"{len(FUZZ_FABRICS)} fabrics, examples/pipeline_placement_torch.py")
+    daemon_launches = phase_daemon()
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cgra_sim.cu",
         "replaces": "src/repro/kernels/cgra_sim.py:75",
-        "launches": launches + api_launches,
+        "launches": launches + api_launches + daemon_launches,
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

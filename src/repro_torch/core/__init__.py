@@ -9,8 +9,12 @@ placement, DESIGN.md §13), mapper.py (the decoupled pipeline), baseline.py
 suite), simulate.py (functional validation), arch/ (declarative
 heterogeneous architecture specs: capability classes, topology families,
 memory ports — DESIGN.md §10), service/ (persistent mapping cache, batch
-compilation) and exact_backends/ (exact joint solver, optimality
-certificates). Deterministic runs are bit-identical to the JAX package's.
+compilation), exact_backends/ (exact joint solver, optimality
+certificates), daemon/ (the persistent compile daemon and its unix-socket
+transport), frontend.py (tracing a Python loop body into a DFG), fuzz.py
+(seeded random DFGs for the differential harness) and placement.py (the
+same algorithm placing model stage graphs onto device meshes).
+Deterministic runs are bit-identical to the JAX package's.
 """
 
 from .arch import ArchSpec, get_preset, list_presets, resolve_arch

@@ -4,6 +4,11 @@ Integer variables t_v with the linear decomposition t = II*fold + k (Z3
 handles this far better than the `mod` operator on small grids), pseudo-
 boolean capacity/connectivity constraints, and label-partition blocking
 clauses after each model so the mapper's retry loop converges quickly.
+
+Each backend builds its terms in a context of its own, where the JAX
+package's copy uses z3's global one: z3 contexts are not thread-safe, and
+the compile daemon's worker threads solve at once (with the global context
+they crash the process). The encoding is the reference's, term for term.
 """
 
 from __future__ import annotations
@@ -37,13 +42,15 @@ class Z3Backend:
         # decision-step counter; read via getattr by TimeSolver
         self.steps_total = 0
         n, ii = p.num_nodes, p.ii
-        self._solver = z3.Solver()
+        # a context per backend: see the module docstring
+        self._ctx = z3.Context()
+        self._solver = z3.Solver(ctx=self._ctx)
         if timeout_s is not None:
             self._solver.set("timeout", int(timeout_s * 1000))
         self._solver.set("random_seed", p.seed & 0xFFFF)
-        self._t = [z3.Int(f"t_{v}") for v in range(n)]
-        self._k = [z3.Int(f"k_{v}") for v in range(n)]
-        self._f = [z3.Int(f"f_{v}") for v in range(n)]
+        self._t = [z3.Int(f"t_{v}", ctx=self._ctx) for v in range(n)]
+        self._k = [z3.Int(f"k_{v}", ctx=self._ctx) for v in range(n)]
+        self._f = [z3.Int(f"f_{v}", ctx=self._ctx) for v in range(n)]
         s = self._solver
         max_fold = max(p.alap) // ii + 1 if n else 1
         for v in range(n):

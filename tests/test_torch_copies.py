@@ -21,15 +21,16 @@ _SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 COPIES = sorted("""
 api/__init__.py api/compiler.py api/options.py api/result.py compile.py
 core/__init__.py core/arch/__init__.py core/arch/presets.py core/arch/spec.py
-core/baseline.py core/benchsuite.py core/cgra.py core/dfg.py
+core/baseline.py core/benchsuite.py core/cgra.py core/daemon/__init__.py
+core/daemon/client.py core/daemon/protocol.py core/daemon/server.py core/dfg.py
 core/exact_backends/__init__.py core/exact_backends/certify.py
-core/exact_backends/joint.py core/mapper.py core/mono.py core/schedule.py
+core/exact_backends/joint.py core/frontend.py core/fuzz.py core/mapper.py
+core/mono.py core/placement.py core/schedule.py
 core/service/__init__.py core/service/batch.py core/service/cache.py
 core/simulate.py core/space_backends/__init__.py core/space_backends/anneal.py
 core/space_backends/base.py core/space_backends/exact.py
 core/time_backends/__init__.py core/time_backends/base.py
-core/time_backends/cp_backend.py core/time_backends/z3_backend.py
-core/time_smt.py obs/__init__.py
+core/time_backends/cp_backend.py core/time_smt.py daemon.py obs/__init__.py
 """.split())
 
 #: modules of the reference's layout that the port rewrites, and why
@@ -37,6 +38,10 @@ DIFFER = {
     "__init__.py": "the package docstring and version are the port's own; "
                    "the lazy API exports are checked by "
                    "tests/test_torch_api.py",
+    "core/time_backends/z3_backend.py":
+        "each backend builds its terms in a z3 context of its own, not z3's "
+        "global one, so that the compile daemon's worker threads can solve "
+        "at once; tests/test_torch_core.py checks the wiring",
 }
 
 

@@ -225,3 +225,108 @@ def test_map_dfg_keyword_checks():
                 {"time_budget_s": 0}, {"space_backend": "greedy"}):
         with pytest.raises(ValueError):
             map_dfg(dfg, cgra, **bad)
+
+
+class _FakeTerm:
+    """A z3 term of the fake module below: its text and its context."""
+
+    def __init__(self, ctx, text):
+        self.ctx, self.text = ctx, text
+
+    def _op(self, sym, other, flip=False):
+        if isinstance(other, _FakeTerm):
+            assert other.ctx is self.ctx, "terms of two contexts mixed"
+        o = getattr(other, "text", str(other))
+        lhs, rhs = (o, self.text) if flip else (self.text, o)
+        return _FakeTerm(self.ctx, f"({lhs} {sym} {rhs})")
+
+    def __ge__(self, o): return self._op(">=", o)
+    def __le__(self, o): return self._op("<=", o)
+    def __lt__(self, o): return self._op("<", o)
+    def __eq__(self, o): return self._op("==", o)
+    def __ne__(self, o): return self._op("!=", o)
+    def __add__(self, o): return self._op("+", o)
+    def __sub__(self, o): return self._op("-", o)
+    def __mul__(self, o): return self._op("*", o)
+    def __rmul__(self, o): return self._op("*", o, flip=True)
+
+    __hash__ = object.__hash__
+
+
+class _FakeZ3:
+    """Just enough of z3's Python API to build the time encoding: it records
+    every assertion and the context of every term, and answers unsat."""
+
+    Z3Exception = RuntimeError
+    sat, unsat = "sat", "unsat"
+
+    def __init__(self):
+        self.global_ctx = object()
+        self.contexts, self.assertions = [], []
+
+    def Context(self):
+        self.contexts.append(object())
+        return self.contexts[-1]
+
+    def Int(self, name, ctx=None):
+        return _FakeTerm(ctx or self.global_ctx, name)
+
+    def _joined(self, name, terms):
+        ctx = terms[0].ctx
+        assert all(t.ctx is ctx for t in terms), "terms of two contexts mixed"
+        return _FakeTerm(ctx, f"{name}({', '.join(t.text for t in terms)})")
+
+    def PbLe(self, pairs, k):
+        return self._joined(f"pb<={k}", [t for t, _ in pairs])
+
+    def Or(self, *args):
+        terms = list(args[0]) if len(args) == 1 else list(args)
+        return self._joined("or", terms)
+
+    def Solver(self, ctx=None):
+        fake = self
+
+        class _Solver:
+            def __init__(self):
+                self.ctx = ctx or fake.global_ctx
+
+            def add(self, *terms):
+                for t in terms:
+                    assert t.ctx is self.ctx, "an assertion of another context"
+                    fake.assertions.append(t.text)
+
+            def set(self, *a):
+                pass
+
+            def check(self):
+                return fake.unsat
+
+        return _Solver()
+
+
+def test_z3_backend_builds_in_a_context_of_its_own(monkeypatch):
+    """The port's z3 time backend puts every term of a backend in a context
+    of its own (z3 contexts are not thread-safe, and the daemon's worker
+    threads solve at once), and asserts the reference's encoding term for
+    term. A fake z3 module stands in for z3, which this host may lack."""
+    from repro.core.time_backends import z3_backend as jz3_backend
+    from repro_torch.core.time_backends import z3_backend
+    from repro_torch.core.time_smt import TimeSolver
+
+    dfg = load_suite(["gsm"])["gsm"]
+    problem = TimeSolver(dfg, CGRA(4, 4), 4, backend="cp")._engine.p
+    texts = []
+    for module in (z3_backend, jz3_backend):
+        fake = _FakeZ3()
+        monkeypatch.setattr(module, "z3", fake)
+        monkeypatch.setattr(module, "HAVE_Z3", True)
+        first = module.Z3Backend(problem, timeout_s=1.0)
+        second = module.Z3Backend(problem, timeout_s=1.0)
+        assert first.next_solution() is None and first.exhausted
+        texts.append((fake.assertions, fake.contexts, first, second))
+    (mine, contexts, first, second), (ref, jcontexts, jfirst, _) = texts
+    assert mine == ref and len(mine) > 2 * dfg.num_nodes
+    assert len(contexts) == 2 and contexts[0] is not contexts[1]
+    assert first._solver.ctx is contexts[0] and second._solver.ctx is contexts[1]
+    assert all(t.ctx is contexts[0] for t in first._t + first._k + first._f)
+    assert jcontexts == [] and jfirst._solver.ctx is not None   # the global one

@@ -121,6 +121,69 @@ def test_anneal_50x50_mapping_runs_on_the_card(cuda):
     np.testing.assert_array_equal(trace[:, :, [0, 7, 299]].cpu().numpy(), ref)
 
 
+def test_daemon_threads_solve_with_z3_at_once(tmp_path):
+    """The compile daemon's worker threads solve at once with z3 as the time
+    backend (``auto`` takes it wherever it is importable, as on the GPU
+    machine): each z3 backend works in a context of its own, so the process
+    survives and every row maps."""
+    pytest.importorskip("z3")
+    from repro_torch.core.daemon import CompileDaemon
+    from repro_torch.core.time_backends import resolve_backend_name
+
+    assert resolve_backend_name("auto") == "z3"
+    names = ["bitcount", "fft", "gsm", "crc32", "sha2", "aes", "basicmath", "backprop"]
+    suite = load_suite(names)
+    with CompileDaemon(CGRA(8, 8), "fast", workers=4,
+                       cache_dir=str(tmp_path / "cache")) as d:
+        tickets = [d.submit(suite[n], tenant=n) for n in names]
+        rows = [t.wait(timeout=300) for t in tickets]
+    assert all(r is not None and r["ok"] for r in rows), rows
+    assert all("z3" in r["backend"] for r in rows), [r["backend"] for r in rows]
+    assert d.stats.solves == len(names) and d.stats.failed == 0
+
+
+@pytest.mark.parametrize("fabric", [dict(rows=3, cols=3),
+                                    dict(rows=4, cols=4, topology="torus"),
+                                    dict(rows=4, cols=4, topology="one-hop")],
+                         ids=["mesh3x3", "torus4x4", "onehop4x4"])
+def test_fuzz_chunk_runs_on_the_card(cuda, fabric):
+    """One chunk of the fuzz harness's seeds (0-16), mapped deterministically
+    by the exact engine with the harness's budgets and executed by the
+    kernel at 4096 lanes x 32 iterations: each trace equals the plain version
+    and sampled lanes the oracle (NaN for NaN, should a program overflow)."""
+    from repro_torch.core.fuzz import random_dfg
+    from repro_torch.core.simulate import check_equivalence
+
+    num_iters, batch, mapped = 32, 4096, 0
+    for seed in range(17):
+        res = map_dfg(random_dfg(seed), CGRA(**fabric), space_backend="exact",
+                      deterministic=True, use_cache=False, det_space_cap=4000,
+                      max_retries_per_window=1, max_slack=1)
+        if not res.ok:
+            continue
+        mapped += 1
+        check_equivalence(res.mapping)
+        prog = compile_program(res.mapping)
+        rng = np.random.default_rng(seed)
+        inputs = {v: rng.uniform(-4, 4, (num_iters, batch)).astype(np.float32).round(2)
+                  for v in prog.input_nodes()}
+        before = cgra_sim.launches
+        _, trace = cgra_run(prog, inputs, num_iters)
+        assert cgra_sim.launches == before + 1
+        tables = prog.sim_tables().to(cuda)
+        x = (torch.stack([torch.as_tensor(inputs[v], device=cuda)
+                          for v in prog.input_nodes()]) if inputs
+             else torch.zeros((0, num_iters, 1), device=cuda))
+        plain = cgra_sim_torch(tables, x)
+        assert bool(((trace == plain) | (trace.isnan() & plain.isnan())).all()), seed
+        lanes = [0, 1, trace.shape[2] - 1]
+        _, ref = cgra_sim_reference(prog, inputs, num_iters,
+                                    lanes=lanes if inputs else None)
+        got = trace[:, :, lanes if inputs else [0]].cpu().numpy()
+        assert np.array_equal(got, ref, equal_nan=True), seed
+    assert mapped > 8
+
+
 # --------------------------------------------------------- flash attention
 
 def _qkv(b, hq, hkv, s, d, dtype, device, seed=0):

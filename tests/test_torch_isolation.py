@@ -1,8 +1,11 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 Subprocesses with ``jax`` and ``repro`` made unimportable run the port's
-main path, its reduced serve path and its reduced training path on the CPU,
-and a scan of the port's sources finds no import of either.
+main path, its reduced serve path and its reduced training path on the CPU;
+the compiler API and the compile daemon (``python -m repro_torch.daemon``
+serving one compile) run with ``torch`` unimportable too. A scan of the
+port's sources, ``chip_smoke.py`` and the port's examples finds no import of
+either.
 """
 
 import os
@@ -84,6 +87,55 @@ def test_api_path_runs_without_jax_the_jax_package_or_torch():
     assert "API_PATH_OK" in proc.stdout
 
 
+_DAEMON_PATH = r'''
+import os, sys, tempfile, threading, time
+for name in ("jax", "jaxlib", "repro", "torch"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.core import running_example
+from repro_torch.core.daemon import DaemonClient, DaemonError
+from repro_torch.daemon import main
+tmp = tempfile.TemporaryDirectory()
+sock = os.path.join(tmp.name, "d.sock")
+seen = {}
+
+def client():
+    deadline = time.time() + 60
+    while True:
+        try:
+            with DaemonClient(sock) as c:
+                c.ping()
+                seen["row"] = c.compile(running_example(), tenant="iso")
+                seen["stats"] = c.stats()
+                c.shutdown()
+            return
+        except DaemonError:
+            if time.time() > deadline:
+                return
+            time.sleep(0.05)
+
+t = threading.Thread(target=client)
+t.start()
+rc = main(["serve", "--socket", sock, "--size", "4", "--profile", "fast",
+           "--workers", "1", "--quiet"])
+t.join(timeout=60)
+assert rc == 0 and seen["row"]["ok"] and seen["row"]["ii"] == 4, seen
+assert seen["stats"]["completed"] == 1 and not os.path.exists(sock)
+tmp.cleanup()
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro", "torch")) and sys.modules[m] is not None]
+assert not bad, bad
+print("DAEMON_PATH_OK")
+'''
+
+
+def test_daemon_serves_without_jax_the_jax_package_or_torch():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _DAEMON_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "DAEMON_PATH_OK" in proc.stdout
+
+
 _SERVE_PATH = r'''
 import sys
 for name in ("jax", "jaxlib", "repro"):
@@ -147,7 +199,8 @@ def test_train_path_runs_without_jax_or_the_jax_package():
 
 _SOURCES = sorted(
     [p for p in (ROOT / "src" / "repro_torch").rglob("*")
-     if p.suffix in (".py", ".cu", ".cuh")] + [ROOT / "chip_smoke.py"]
+     if p.suffix in (".py", ".cu", ".cuh")]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 )
 _FORBIDDEN = [
     re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M),
