@@ -47,24 +47,41 @@ touches the GIL-bound solver, and cold solves inherit the process-wide
 memory LRU + disk cache directly. The solver itself is pure Python, so
 concurrent cold solves time-slice; daemons fronting heavy cold traffic
 should pre-warm via ``repro_torch.compile`` / speculation (DESIGN.md §16.6).
+
+Where this port differs from the reference: a cold solve on the z3 time
+backend (``auto`` takes it wherever z3 is importable) runs in a pool of
+``workers`` spawned processes, not in the worker thread. z3's Python API
+makes a foreign call through ctypes for every term it builds, and ctypes
+gives up the interpreter lock around each one; while other threads run the
+pure-Python space search, taking it back waits up to a switch interval, so
+a solve of tens of thousands of calls stretches from a tenth of a second to
+minutes (``tools/daemon_z3_probe.py`` measures it). A memory-cache hit stays
+in the thread and never reaches the pool; the process reads the disk cache
+before it solves, and its mapping is put into this process's memory cache.
+The cp backend keeps the reference's threads.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import multiprocessing as mp
 import os
 import threading
 import time as _time
 from collections import OrderedDict, deque
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
 
 from ... import obs
 from ...api import CompileOptions, Compiler, CompileResult
 from ...api.result import classify_failure
 from ..dfg import DFG
-from ..mapper import _cache_base_key
+from ..mapper import _MAP_CACHE, _cache_base_key, _cache_put, default_max_ii
+from ..schedule import min_ii
+from ..service.batch import CompileJob, _pool_init, _run_job_pooled
 from ..space_backends import resolve_space_backend_name
+from ..time_backends import available_backends, resolve_backend_name
 
 __all__ = ["CompileDaemon", "DaemonStats", "Ticket", "neighbor_options"]
 
@@ -280,6 +297,9 @@ class CompileDaemon:
         self._tracer_prev: obs.Tracer | None = None
         self._rotate_seq = 0
         self._since_rotate = 0
+        # cold z3 solves: a spawned process pool, made on first use
+        self._solve_pool: ProcessPoolExecutor | None = None
+        self._solve_stop = None
 
     # ---------------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -315,9 +335,14 @@ class CompileDaemon:
         for req in queued:
             self._finish(req, self._failure_row(
                 req, "cancelled: daemon stopped", cancelled=True))
+        if self._solve_stop is not None:
+            self._solve_stop.set()          # in-flight solves stop early
         for t in self._threads:
             t.join(timeout=timeout)
         self._threads.clear()
+        if self._solve_pool is not None:
+            self._solve_pool.shutdown(wait=True, cancel_futures=True)
+            self._solve_pool = None
         if self._tracer is not None:
             self._rotate(force=True)
             obs.install_tracer(self._tracer_prev)
@@ -553,9 +578,12 @@ class CompileDaemon:
                       tenant=req.tenant, rid=req.rid) as sp:
             # per-request option deltas ride through the same replace/
             # validate path as every frontend (already validated in submit)
-            result = self.compiler.compile(
-                req.dfg, should_stop=should_stop,
-                **self._delta(opts, **extra))
+            if self._solves_in_process(opts) and not self._memory_hit(req.dfg, opts):
+                result = self._compile_in_process(req.dfg, opts.replace(**extra))
+            else:
+                result = self.compiler.compile(
+                    req.dfg, should_stop=should_stop,
+                    **self._delta(opts, **extra))
             speculative = (
                 result.source in ("memory", "disk")
                 and self._cache_key(req.dfg, opts) in self._spec_keys
@@ -570,6 +598,49 @@ class CompileDaemon:
         row = result.as_dict()
         self._record_completion(req, result, speculative)
         self._finish(req, row, speculative=speculative)
+
+    # ------------------------------------------------------ z3 in processes
+    @staticmethod
+    def _solves_in_process(opts: CompileOptions) -> bool:
+        """Whether a cold solve under ``opts`` runs on z3 (deterministic
+        sessions always take cp), and so in the process pool."""
+        name = resolve_backend_name(opts.backend)
+        return not opts.deterministic and name == "z3" and available_backends()[name]
+
+    def _memory_hit(self, dfg: DFG, opts: CompileOptions) -> bool:
+        """Whether this process's memory cache holds a mapping the mapper
+        would look up for ``dfg`` (a peek: no counter moves)."""
+        if not opts.use_cache:
+            return False
+        base = self._cache_key(dfg, opts)
+        lo = min_ii(dfg, self.compiler.cgra)
+        hi = opts.max_ii if opts.max_ii is not None else default_max_ii(lo)
+        return any((*base, ii) in _MAP_CACHE for ii in range(lo, hi + 1))
+
+    def _pool(self) -> ProcessPoolExecutor:
+        with self._lock:
+            if self._solve_pool is None:
+                ctx = mp.get_context("spawn")   # no threads or locks inherited
+                self._solve_stop = ctx.Event()
+                self._solve_pool = ProcessPoolExecutor(
+                    max_workers=self.num_workers, mp_context=ctx,
+                    initializer=_pool_init, initargs=(self._solve_stop,))
+            return self._solve_pool
+
+    def _compile_in_process(self, dfg: DFG, opts: CompileOptions) -> CompileResult:
+        """One compile in the process pool (disk lookup, then solve), as
+        ``Compiler.compile`` would run it here; its mapping then enters this
+        process's memory cache."""
+        job = CompileJob(dfg, self.compiler.cgra, options=opts)
+        report = self._pool().submit(_run_job_pooled, job, {}).result()
+        result = CompileResult.from_job_report(
+            report, dfg, self.compiler.cgra,
+            max_register_pressure=opts.max_register_pressure)
+        if result.ok and opts.use_cache:
+            _cache_put(self._cache_key(dfg, opts), result.mapping)
+        if opts.exact_check:
+            self.compiler._certify(dfg, result, opts)
+        return result
 
     def _record_completion(self, req, result, speculative: bool) -> None:
         with self._lock:

@@ -1,6 +1,6 @@
 """The LM model zoo in PyTorch: configs' data types (api), layers,
-attention, the decoder-LM assembly (build) and ``build_model`` (zoo).
-Only the dense family is ported."""
+attention (GQA, MLA), the MoE FFN (moe), the decoder-LM assembly (build)
+and ``build_model`` (zoo). The dense and MoE families are ported."""
 
 from .zoo import build_model, param_count
 

@@ -1,6 +1,7 @@
-"""Attention for the model zoo: GQA (+qk-norm, sliding window, softcap).
+"""Attention for the model zoo: GQA (+qk-norm, sliding window, softcap)
+and Multi-head Latent Attention (DeepSeek-V2/V3 MLA).
 
-The PyTorch counterpart of the GQA part of the JAX package's
+The PyTorch counterpart of the JAX package's
 ``src/repro/models/attention.py``. Every causal pass with more than one
 query, no ``cross_kv`` and no ``prefix_len`` whose keys are its own (a
 parallel forward without caches, as in training, and a prefill that writes
@@ -17,10 +18,14 @@ outside any Pallas kernel.
 The cache is updated in place (the reference returns a new one): a decode
 step then writes one position per layer instead of copying the whole cache.
 
-Multi-head latent attention (DeepSeek MLA) is not ported yet:
-:func:`mla_attention` raises.
+MLA attends in plain torch ops on every pass, as the reference does: the
+flash kernel takes one head dim for q, k and v, and MLA's v dim (128 for
+V3) is not its qk dim (192).
 
-Cache layout (decode): k, v [batch, kv_heads, cache_len, head_dim].
+Cache layouts (decode):
+  GQA: k, v [batch, kv_heads, cache_len, head_dim]
+  MLA: c_kv [batch, cache_len, kv_lora + rope_dim] (the compressed latent
+       and the shared rope key)
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ NOT_PORTED = 'ROADMAP queue 1, "MLA, MoE and the other LM families"'
 class KVCache(NamedTuple):
     k: torch.Tensor
     v: torch.Tensor
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor   # [batch, cache, kv_lora + rope_dim]
 
 
 def gqa_init(gen: torch.Generator, cfg, layer_dtype, device) -> dict:
@@ -181,6 +190,95 @@ def make_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> KVCache:
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(
-        f"multi-head latent attention (MLA) is not ported yet: {NOT_PORTED}")
+# --------------------------------------------------------------------- MLA
+
+def mla_init(gen: torch.Generator, cfg, dtype, device) -> dict:
+    d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
+    qk_head = m.qk_nope_dim + m.rope_dim
+    return {
+        # query path (low-rank)
+        "w_dq": dense_param(gen, d, m.q_lora, dtype, device),
+        "q_norm": torch.zeros((m.q_lora,), dtype=dtype, device=device),
+        "w_uq": dense_param(gen, m.q_lora, h * qk_head, dtype, device),
+        # kv path (compressed latent + decoupled rope key)
+        "w_dkv": dense_param(gen, d, m.kv_lora + m.rope_dim, dtype, device),
+        "kv_norm": torch.zeros((m.kv_lora,), dtype=dtype, device=device),
+        "w_uk": dense_param(gen, m.kv_lora, h * m.qk_nope_dim, dtype, device),
+        "w_uv": dense_param(gen, m.kv_lora, h * m.v_dim, dtype, device),
+        "w_o": dense_param(gen, h * m.v_dim, d, dtype, device),
+    }
+
+
+def mla_attention(
+    params: dict,
+    x: torch.Tensor,               # [batch, seq, d_model]
+    positions: torch.Tensor,       # [seq] (absolute)
+    cfg,
+    *,
+    cache: MLACache | None = None,  # append & attend over cache
+) -> tuple[torch.Tensor, MLACache | None]:
+    """DeepSeek MLA: queries and keys split into a latent 'nope' part and a
+    rope part whose key is shared by every head; only the compressed latent
+    and the rope key are cached, written at ``positions`` in place."""
+    b, s, _ = x.shape
+    h, m = cfg.num_heads, cfg.mla
+
+    cq = rms_norm(x @ params["w_dq"], params["q_norm"])
+    q = (cq @ params["w_uq"]).reshape(b, s, h, m.qk_nope_dim + m.rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = rope(q_rope.transpose(1, 2), positions[None, None, :],
+                  theta=cfg.rope_theta).transpose(1, 2)
+
+    ckv_full = x @ params["w_dkv"]                      # [b, s, kv_lora+rope]
+    c_kv, k_rope = ckv_full[..., :m.kv_lora], ckv_full[..., m.kv_lora:]
+    k_rope = rope(k_rope[:, None], positions[None, None, :],
+                  theta=cfg.rope_theta)[:, 0]           # [b, s, rope] shared
+
+    new_cache = None
+    if cache is not None:
+        cache.c_kv.index_copy_(1, positions, torch.cat([c_kv, k_rope], dim=-1))
+        new_cache = cache
+        c_kv, k_rope = cache.c_kv[..., :m.kv_lora], cache.c_kv[..., m.kv_lora:]
+        k_pos = torch.arange(cache.c_kv.shape[1], device=x.device)
+        valid = k_pos <= positions[-1]
+    else:
+        k_pos = positions
+        valid = None
+
+    c_kv = rms_norm(c_kv, params["kv_norm"])
+    t = c_kv.shape[1]
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, t, h, m.qk_nope_dim)
+    v = (c_kv @ params["w_uv"]).reshape(b, t, h, m.v_dim)
+
+    scale = (m.qk_nope_dim + m.rope_dim) ** -0.5
+    if s * t >= _BLOCKED_ATTN_THRESHOLD and s > 1:
+        # fold the shared rope key into the head dim and reuse the blocked path
+        q_cat = torch.cat([q_nope, q_rope], dim=-1)               # [b,s,h,dk]
+        k_cat = torch.cat(
+            [k_nope, k_rope[:, :, None].expand(b, t, h, m.rope_dim)], dim=-1)
+        out = _blocked_scores_attention(
+            q_cat.transpose(1, 2)[:, :, None], k_cat.transpose(1, 2),
+            v.transpose(1, 2), positions, k_pos, scale=scale,
+            attn_softcap=None, causal=True, window=None, prefix_len=None,
+            valid=valid,
+        )                                                         # [b,h,1,s,vd]
+        out = out[:, :, 0].transpose(1, 2)                        # [b,s,h,vd]
+    else:
+        # the reference's (nope + rope) * scale + bias, in place: at a
+        # 2048-token prefill of V3 each [b, h, s, t] f32 term is 8.7 GB
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+        scores.add_(torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float()))
+        scores.mul_(scale)
+        bias = _mask_bias(positions, k_pos, causal=True, window=None)
+        if valid is not None:
+            bias = bias + torch.where(valid, 0.0, -1e30)[None, :]
+        probs = torch.softmax(scores.add_(bias), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = out.reshape(b, s, h * m.v_dim).to(x.dtype)
+    return out @ params["w_o"], new_cache
+
+
+def make_mla_cache(cfg, batch: int, cache_len: int, dtype, device) -> MLACache:
+    m = cfg.mla
+    return MLACache(torch.zeros((batch, cache_len, m.kv_lora + m.rope_dim),
+                                dtype=dtype, device=device))

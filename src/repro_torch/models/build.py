@@ -1,17 +1,21 @@
-"""Decoder-LM assembly for the dense family.
+"""Decoder-LM assembly for the dense and MoE families.
 
-The PyTorch counterpart of the dense part of the JAX package's
-``src/repro/models/build.py``. Parameters are nested dicts of tensors with
-the reference's keys; a layer stack is a list of per-layer dicts (the
-reference stacks them on a leading axis for ``lax.scan``), run by a plain
-loop. With ``cfg.remat``, grad mode on and no caches, each layer runs under
-``torch.utils.checkpoint`` (the reference wraps each layer in
-``jax.checkpoint``): its activations are recomputed in the backward. Caches
-are lists of per-layer :class:`KVCache`, updated in place. ``lm_loss`` is
-the training loss.
+The PyTorch counterpart of the JAX package's ``src/repro/models/build.py``.
+Parameters are nested dicts of tensors with the reference's keys; a layer
+stack is a list of per-layer dicts (the reference stacks them on a leading
+axis for ``lax.scan``), run by a plain loop. An MoE model has a stack of
+``num_dense_layers`` dense blocks and one of MoE blocks after it; MLA
+replaces GQA in every block when ``cfg.mla`` is set, and ``cfg.mtp`` adds
+the multi-token-prediction head to the loss. With ``cfg.remat``, grad mode
+on and no caches, each layer runs under ``torch.utils.checkpoint`` (the
+reference wraps each layer in ``jax.checkpoint``): its activations, and its
+MoE aux loss, are recomputed in the backward. Caches are lists of per-layer
+:class:`KVCache` or :class:`MLACache`, updated in place. ``lm_loss`` is the
+training loss.
 
-Not ported yet, and raising ``NotImplementedError`` when a config asks for
-them: MoE stacks, multi-token prediction (``mtp``), meta tokens,
+Single device only: the reference's expert-parallel ``shard_map`` island
+waits for the sharding slice (ROADMAP queue 2). Not ported yet, and raising
+``NotImplementedError`` when a config asks for them: meta tokens,
 prefix-LM masking and frontends (ROADMAP queue 1, "MLA, MoE and the other
 LM families").
 """
@@ -25,19 +29,18 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ops import resolve_device
 from .api import ArchConfig
 from .attention import (
-    NOT_PORTED, KVCache, gqa_attention, gqa_init, make_kv_cache,
+    NOT_PORTED, KVCache, MLACache, gqa_attention, gqa_init, make_kv_cache,
+    make_mla_cache, mla_attention, mla_init,
 )
 from .layers import (
     cross_entropy_loss, dense_param, embed_param, geglu_mlp, gelu_mlp,
     gelu_mlp_init, rms_norm, softcap, swiglu_mlp, swiglu_mlp_init,
 )
+from .moe import moe_ffn, moe_init
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for a config that needs a part of the LM path not ported yet."""
     missing = [name for name, on in (
-        ("MoE layers", cfg.moe is not None),
-        ("MLA attention", cfg.mla is not None),
-        ("multi-token prediction", cfg.mtp),
         ("meta tokens", bool(cfg.num_meta_tokens)),
         ("prefix-LM masking", cfg.prefix_lm),
         ("a frontend", cfg.frontend is not None),
@@ -49,12 +52,17 @@ def check_ported(cfg: ArchConfig) -> None:
 
 # ------------------------------------------------------------------ blocks
 
-def block_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device) -> dict:
     d, dtype = cfg.d_model, cfg.dtype
     p: dict = {"attn_norm": torch.zeros((d,), dtype=dtype, device=device)}
-    p["attn"] = gqa_init(gen, cfg, dtype, device)
+    if cfg.mla is not None:
+        p["attn"] = mla_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = gqa_init(gen, cfg, dtype, device)
     p["ffn_norm"] = torch.zeros((d,), dtype=dtype, device=device)
-    if cfg.mlp_kind == "gelu":
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    elif cfg.mlp_kind == "gelu":
         p["mlp"] = gelu_mlp_init(gen, d, cfg.d_ff, dtype, device)
     else:
         p["mlp"] = swiglu_mlp_init(gen, d, cfg.d_ff, dtype, device)
@@ -65,18 +73,25 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
 
 
 def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig, *, window: int | None = None,
-                cache: KVCache | None = None):
-    """One pre-norm block; returns (x, cache)."""
+                cfg: ArchConfig, *, kind: str, window: int | None = None,
+                cache: KVCache | MLACache | None = None):
+    """One pre-norm block; returns (x, cache, aux), aux the MoE block's
+    load-balance loss (0 for a dense block)."""
     h = rms_norm(x, p["attn_norm"])
-    a, new_cache = gqa_attention(p["attn"], h, positions, cfg, window=window,
-                                 cache=cache)
+    if cfg.mla is not None:
+        a, new_cache = mla_attention(p["attn"], h, positions, cfg, cache=cache)
+    else:
+        a, new_cache = gqa_attention(p["attn"], h, positions, cfg,
+                                     window=window, cache=cache)
     if cfg.sandwich_norm:
         a = rms_norm(a, p["post_attn_norm"])
     x = x + a
 
     h = rms_norm(x, p["ffn_norm"])
-    if cfg.mlp_kind == "gelu":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "moe":
+        f, aux = moe_ffn(p["moe"], h, cfg)
+    elif cfg.mlp_kind == "gelu":
         f = gelu_mlp(p["mlp"], h)
     elif cfg.mlp_kind == "geglu":
         f = geglu_mlp(p["mlp"], h)
@@ -84,7 +99,7 @@ def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
         f = swiglu_mlp(p["mlp"], h)
     if cfg.sandwich_norm:
         f = rms_norm(f, p["post_ffn_norm"])
-    return x + f, new_cache
+    return x + f, new_cache, aux
 
 
 # ------------------------------------------------------------- layer stacks
@@ -104,30 +119,40 @@ def layer_windows(cfg: ArchConfig, num_layers: int, offset: int = 0) -> np.ndarr
 
 
 def _block_out(p: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ArchConfig, window: int) -> torch.Tensor:
-    """A block without a cache, as :func:`apply_stack` checkpoints it."""
-    return block_apply(p, x, positions, cfg, window=window)[0]
+               cfg: ArchConfig, kind: str, window: int):
+    """A block without a cache, as :func:`apply_stack` checkpoints it:
+    (x, aux), so that the aux loss keeps its gradient through the
+    recompute."""
+    out, _, aux = block_apply(p, x, positions, cfg, kind=kind, window=window)
+    return out, aux
 
 
 def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
-                positions: torch.Tensor, cfg: ArchConfig, *, caches=None):
-    """A plain loop over the layers of one stack; returns (x, caches).
+                positions: torch.Tensor, cfg: ArchConfig, *, kind: str,
+                caches=None):
+    """A plain loop over the layers of one stack; returns (x, aux summed
+    over the layers, caches).
 
     With ``cfg.remat``, grad mode on and no caches, each layer is a
     non-reentrant ``torch.utils.checkpoint``: the backward runs its forward
     again (the flash kernel included) and uses only that recompute's saved
     tensors."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.remat and caches is None and torch.is_grad_enabled():
         for i, p_l in enumerate(stack):
-            x = checkpoint(_block_out, p_l, x, positions, cfg, int(windows[i]),
-                           use_reentrant=False, preserve_rng_state=False)
-        return x, None
+            x, aux_l = checkpoint(_block_out, p_l, x, positions, cfg, kind,
+                                  int(windows[i]), use_reentrant=False,
+                                  preserve_rng_state=False)
+            aux = aux + aux_l
+        return x, aux, None
     new_caches = []
     for i, p_l in enumerate(stack):
-        x, nc = block_apply(p_l, x, positions, cfg, window=int(windows[i]),
-                            cache=None if caches is None else caches[i])
+        x, nc, aux_l = block_apply(p_l, x, positions, cfg, kind=kind,
+                                   window=int(windows[i]),
+                                   cache=None if caches is None else caches[i])
+        aux = aux + aux_l
         new_caches.append(nc)
-    return x, (new_caches if caches is not None else None)
+    return x, aux, (new_caches if caches is not None else None)
 
 
 # ----------------------------------------------------------- decoder LM
@@ -143,15 +168,30 @@ def _lm_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_param(gen, cfg.d_model, cfg.vocab, cfg.dtype, device)
-    params["dense_stack"] = [block_init(gen, cfg, device)
-                             for _ in range(cfg.num_layers)]
+    for stack_name, kind, n_layers, _ in _stacks(cfg):
+        params[stack_name] = [block_init(gen, cfg, kind, device)
+                              for _ in range(n_layers)]
+    if cfg.mtp:
+        params["mtp_proj"] = dense_param(gen, 2 * cfg.d_model, cfg.d_model,
+                                         cfg.dtype, device)
+        params["mtp_block"] = block_init(gen, cfg, "dense", device)
+        params["mtp_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                         device=device)
     return params
 
 
 def _stacks(cfg: ArchConfig):
-    """(params key, layers, window offset) of each layer stack."""
+    """(params key, block kind, layers, window offset) of each layer stack:
+    an MoE model's ``num_dense_layers`` dense blocks, then its MoE blocks."""
     check_ported(cfg)
-    return [("dense_stack", cfg.num_layers, 0)]
+    n_dense = cfg.num_dense_layers if cfg.moe else cfg.num_layers
+    n_moe = cfg.num_layers - n_dense if cfg.moe else 0
+    out = []
+    if n_dense:
+        out.append(("dense_stack", "dense", n_dense, 0))
+    if n_moe:
+        out.append(("moe_stack", "moe", n_moe, n_dense))
+    return out
 
 
 def _embed(params, cfg, tokens):
@@ -168,31 +208,48 @@ def _unembed(params, cfg, x):
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None):
-    """Shared trunk: embeddings -> stacks -> hidden states (+ caches)."""
+    """Shared trunk: embeddings -> stacks -> (hidden states, aux summed over
+    the layers, caches)."""
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: dict = {}
-    for stack_name, n_layers, offset in _stacks(cfg):
-        x, nc = apply_stack(
+    for stack_name, kind, n_layers, offset in _stacks(cfg):
+        x, aux_s, nc = apply_stack(
             params[stack_name], layer_windows(cfg, n_layers, offset), x,
-            positions, cfg,
+            positions, cfg, kind=kind,
             caches=caches.get(stack_name) if caches is not None else None,
         )
+        aux = aux + aux_s
         new_caches[stack_name] = nc
-    return x, (new_caches if caches is not None else None)
+    return x, aux, (new_caches if caches is not None else None)
 
 
 def lm_loss(params, cfg: ArchConfig, batch):
     """Mean next-token cross-entropy (with the reference's z-loss) of
-    ``batch["tokens"]`` against ``batch["labels"]``; returns (loss, metrics)
-    with metrics ``ce`` and ``aux`` (0 for the dense family: no MoE)."""
-    x, _ = lm_forward(params, cfg, batch["tokens"])
+    ``batch["tokens"]`` against ``batch["labels"]``, plus ``mtp_weight``
+    times the multi-token-prediction loss (``cfg.mtp``: the token after
+    next, from the last hidden state and the next token's embedding) and
+    the MoE aux loss; returns (loss, metrics) with metrics ``ce``, ``aux``
+    (0 without MoE layers) and, with MTP, ``mtp``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x, aux, _ = lm_forward(params, cfg, tokens)
     logits = _unembed(params, cfg, x)
-    loss = cross_entropy_loss(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    loss = cross_entropy_loss(logits, labels)
     metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp:
+        h = x[:, :-1]
+        nxt = _embed(params, cfg, tokens[:, 1:])
+        m_in = torch.cat([h, nxt], dim=-1) @ params["mtp_proj"]
+        m_in = rms_norm(m_in, params["mtp_norm"])
+        pos = torch.arange(m_in.shape[1], device=m_in.device)
+        m_out = block_apply(params["mtp_block"], m_in, pos, cfg, kind="dense")[0]
+        mtp_logits = _unembed(params, cfg, m_out)
+        mtp_loss = cross_entropy_loss(mtp_logits[:, :-1], labels[:, 2:])
+        loss = loss + cfg.mtp_weight * mtp_loss
+        metrics["mtp"] = mtp_loss
     return loss + aux, metrics
 
 
@@ -200,24 +257,26 @@ def lm_loss(params, cfg: ArchConfig, batch):
 
 def lm_make_caches(params, cfg: ArchConfig, batch: int, cache_len: int):
     device = params["embed"].device
-    return {name: [make_kv_cache(cfg, batch, cache_len, cfg.dtype, device)
+    make = make_mla_cache if cfg.mla is not None else make_kv_cache
+    return {name: [make(cfg, batch, cache_len, cfg.dtype, device)
                    for _ in range(n_layers)]
-            for name, n_layers, _ in _stacks(cfg)}
+            for name, _, n_layers, _ in _stacks(cfg)}
 
 
 def lm_decode_step(params, cfg: ArchConfig, token, caches, pos: int):
     """One decode step: token [B, 1] + caches at absolute position ``pos``."""
     positions = torch.tensor([pos], device=token.device)
-    x, new_caches = lm_forward(params, cfg, token, caches=caches,
-                               positions=positions)
+    x, _, new_caches = lm_forward(params, cfg, token, caches=caches,
+                                  positions=positions)
     return _unembed(params, cfg, x)[:, -1], new_caches
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, cache_len: int):
-    """Parallel prefill that also fills decode caches: the prompt's k/v are
-    written at cache offset 0, and attention runs in the flash kernel.
-    Only the last position is unembedded (the reference unembeds all and
-    keeps the last; the rows are independent, so the logits are the same)."""
+    """Parallel prefill that also fills decode caches: the prompt's k/v (or
+    MLA latents) are written at cache offset 0, and GQA attention runs in
+    the flash kernel. Only the last position is unembedded (the reference
+    unembeds all and keeps the last; the rows are independent, so the
+    logits are the same)."""
     caches = lm_make_caches(params, cfg, tokens.shape[0], cache_len)
-    x, new_caches = lm_forward(params, cfg, tokens, caches=caches)
+    x, _, new_caches = lm_forward(params, cfg, tokens, caches=caches)
     return _unembed(params, cfg, x[:, -1:])[:, -1], new_caches

@@ -1,8 +1,12 @@
-"""build_model: ArchConfig -> ModelSpec, for the dense family.
+"""build_model: ArchConfig -> ModelSpec, for the dense and MoE families.
 
 The PyTorch counterpart of the JAX package's ``src/repro/models/zoo.py``.
-Only ``family == "dense"`` is ported (qwen3-0.6b, gemma2-9b, gemma2-27b,
-mistral-nemo-12b); the others raise ``NotImplementedError``.
+``family == "dense"`` (qwen3-0.6b, gemma2-9b, gemma2-27b,
+mistral-nemo-12b) and ``family == "moe"`` (deepseek-moe-16b,
+deepseek-v3-671b: MoE layers, MLA, multi-token prediction) are ported; the
+``vlm``, ``audio``, ``ssm`` and ``hybrid`` families raise
+``NotImplementedError`` (ROADMAP queue 1, "MLA, MoE and the other LM
+families").
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ def build_model(cfg: ArchConfig) -> ModelSpec:
     ``loss_fn(params, batch) -> (loss, metrics)``, ``prefill(params,
     tokens, cache_len)``, ``decode_step(params, token, caches, pos)`` and
     ``make_caches(params, batch, cache_len)``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {NOT_PORTED}")
     lm.check_ported(cfg)

@@ -142,6 +142,59 @@ def test_daemon_threads_solve_with_z3_at_once(tmp_path):
     assert d.stats.solves == len(names) and d.stats.failed == 0
 
 
+def test_daemon_solves_z3_in_worker_processes(tmp_path):
+    """The daemon on ``auto`` where z3 is importable (the GPU machine's
+    host): 4 workers at 20x20 send each cold z3 solve to a worker process,
+    so a solve beside others takes about as long as alone (in 4 threads
+    sha2 took 24.64 s against 0.08 s alone), and a repeat is a memory hit
+    in the thread."""
+    pytest.importorskip("z3")
+    from repro_torch.core.daemon import CompileDaemon
+
+    names = ["sha2", "fft", "gsm", "crc32", "bitcount", "aes", "basicmath", "stringsearch"]
+    suite = load_suite(names)
+    with CompileDaemon(CGRA(20, 20), "fast", workers=4, time_budget_s=90.0,
+                       cache_dir=str(tmp_path / "cache")) as d:
+        assert d._solves_in_process(d.options)
+        rows = [t.wait(timeout=300) for t in [d.submit(suite[n]) for n in names]]
+        again = [d.compile(suite[n]) for n in names]
+    assert all(r is not None and r["ok"] and r["backend"] == "z3" for r in rows), rows
+    assert max(r["wall_s"] for r in rows) < 10.0, [(r["name"], r["wall_s"]) for r in rows]
+    assert all(r["source"] == "memory" for r in again)
+    assert d.stats.solves == len(names) and d.stats.warm_memory == len(names)
+
+
+def test_deepseek_moe_reduced_serves_on_the_card(cuda):
+    """A reduced deepseek-moe-16b in bf16 on the card: one flash launch per
+    layer in a prefill (head dim 32: the CUDA-core kernel), the same logits
+    from two prefills, tokens in range."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), dtype=torch.bfloat16)
+    spec = build_model(cfg)
+    params = spec.init(0)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(2, 200))
+    before = flash_attention.launches
+    a = spec.prefill(params, torch.as_tensor(prompts, device="cuda"), 216)[0]
+    assert flash_attention.launches == before + cfg.num_layers
+    b = spec.prefill(params, torch.as_tensor(prompts, device="cuda"), 216)[0]
+    assert torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+    tokens = serve_batch(spec, params, prompts, 4, 216)
+    assert tokens.shape == (2, 4) and ((tokens >= 0) & (tokens < cfg.vocab)).all()
+
+
+def test_deepseek_v3_reduced_trains_on_the_card(cuda):
+    """A reduced deepseek-v3-671b (MLA, sigmoid routing, MTP) takes a bf16
+    training step on the card: finite loss, aux inside it, MTP reported."""
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").reduced(), dtype=torch.bfloat16)
+    spec = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device="cuda")
+    batch = SyntheticLM(cfg, 2, 64, seed=0).batch_at(0, "cuda")
+    _, m = train.make_step(spec, opt_cfg, compression=False)(state, batch)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert float(m["aux"]) > 0 and "mtp" in m
+    assert abs(float(m["loss"]) - float(m["ce"] + m["aux"] + cfg.mtp_weight * m["mtp"])) < 1e-4
+
+
 @pytest.mark.parametrize("fabric", [dict(rows=3, cols=3),
                                     dict(rows=4, cols=4, topology="torus"),
                                     dict(rows=4, cols=4, topology="one-hop")],

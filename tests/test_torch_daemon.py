@@ -370,6 +370,80 @@ def test_deterministic_daemon_rows_match_reference():
     assert all(r["ok"] for r in rows[:-1])
 
 
+@pytest.fixture
+def solves_in_process(monkeypatch):
+    """Send every cold solve to the daemon's process pool, as a z3 solve
+    goes there (this host has no z3): the pool's solves are counted."""
+    from repro_torch.core.daemon import server
+
+    monkeypatch.setattr(CompileDaemon, "_solves_in_process", staticmethod(lambda opts: True))
+    seen = []
+    real = server.CompileDaemon._compile_in_process
+
+    def counted(self, dfg, opts):
+        seen.append(dfg.name)
+        return real(self, dfg, opts)
+
+    monkeypatch.setattr(server.CompileDaemon, "_compile_in_process", counted)
+    return seen
+
+
+def test_deterministic_rows_from_the_process_pool_match_reference(solves_in_process):
+    """The same request mix with every solve in the daemon's spawned
+    process pool: rows and stats equal the reference daemon's threads."""
+    rows, stats = _deterministic_rows(
+        lambda **kw: CompileDaemon(CGRA(4, 4), "deterministic-ci", workers=2, **kw),
+        load_suite, running_example)
+    jrows, jstats = _deterministic_rows(
+        lambda **kw: JCompileDaemon(JCGRA(4, 4), "deterministic-ci", workers=2, **kw),
+        jload_suite, jrunning_example)
+    assert [_untimed(r) for r in rows] == [_untimed(r) for r in jrows]
+    assert stats == jstats
+    assert len(solves_in_process) == stats["solves"] == len(QUICK) + 2
+
+
+def test_process_pool_solves_cold_and_memory_hits_stay_in_threads(tmp_path, solves_in_process):
+    """A cold solve in the pool writes the disk cache and this process's
+    memory cache; the repeat is a memory hit that never reaches the pool; a
+    fresh process's daemon gets a disk hit from the pool, then memory."""
+    fft = load_suite(["fft"])["fft"]
+    with _daemon(tmp_path) as d:
+        cold = d.compile(fft)
+        warm = d.compile(fft)
+    assert cold["ok"] and cold["source"] == "solve"
+    assert warm["source"] == "memory" and warm["ii"] == cold["ii"]
+    assert solves_in_process == ["fft"]
+    assert d.stats.solves == 1 and d.stats.warm_memory == 1
+    clear_mapping_cache()
+    with _daemon(tmp_path) as d:
+        disk = d.compile(fft)
+        again = d.compile(fft)
+    assert disk["source"] == "disk" and again["source"] == "memory"
+    assert disk["ii"] == cold["ii"] and solves_in_process == ["fft", "fft"]
+    assert d.stats.warm_disk == 1 and d.stats.warm_memory == 1 and d.stats.solves == 0
+
+
+@pytest.mark.parametrize("z3_available", [True, False])
+def test_auto_takes_z3_and_its_cold_solves_go_to_processes(monkeypatch, z3_available):
+    """Where z3 is importable (stubbed here, as tests/test_torch_core.py
+    does), the daemon's ``auto`` resolves to z3, as the reference's does,
+    and a cold solve on it goes to the process pool; cp, and deterministic
+    sessions (always cp), keep the reference's threads."""
+    from repro.core.time_backends import base as jbase
+    from repro_torch.core.time_backends import base
+
+    for registry in (base._REGISTRY, jbase._REGISTRY):
+        monkeypatch.setattr(registry["z3"], "available", lambda: z3_available)
+    d = CompileDaemon(CGRA(4, 4), "fast")
+    assert d.compiler.options.backend == "auto"
+    assert base.resolve_backend_name("auto") == jbase.resolve_backend_name("auto") \
+        == ("z3" if z3_available else "cp")
+    assert d._solves_in_process(d.options) == z3_available
+    assert d._solves_in_process(d.options.replace(backend="z3")) == z3_available
+    assert not d._solves_in_process(d.options.replace(backend="cp"))
+    assert not d._solves_in_process(resolve_options("deterministic-ci"))
+
+
 @pytest.mark.parametrize("hops,pressure", [(0, None), (1, 2), (2, None)])
 def test_neighbor_options_match_reference(hops, pressure):
     from repro.api import resolve_options as jresolve_options

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 Subprocesses with ``jax`` and ``repro`` made unimportable run the port's
-main path, its reduced serve path and its reduced training path on the CPU;
+main path, its reduced serve path and its reduced training path on the CPU,
+for the dense family and for the DeepSeek (MoE) family;
 the compiler API and the compile daemon (``python -m repro_torch.daemon``
 serving one compile) run with ``torch`` unimportable too. A scan of the
 port's sources, ``chip_smoke.py`` and the port's examples finds no import of
@@ -195,6 +196,36 @@ def test_train_path_runs_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     assert "done: 3 steps" in proc.stdout
     assert "TRAIN_PATH_OK" in proc.stdout
+
+
+_DEEPSEEK_PATH = r'''
+import sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.launch import serve, train
+serve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+with tempfile.TemporaryDirectory() as ckpt:
+    report = train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu",
+                         "--steps", "2", "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt])
+assert report.steps_done == 2 and report.restarts == 0, report
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("DEEPSEEK_PATH_OK")
+'''
+
+
+def test_deepseek_serve_and_train_run_without_jax_or_the_jax_package():
+    """The MoE family's paths: deepseek-moe-16b served (MoE layers, the
+    flash wrapper), deepseek-v3-671b trained (MLA, sigmoid routing, MTP)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _DEEPSEEK_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "served 2 requests / 6 tokens" in proc.stdout
+    assert "done: 2 steps" in proc.stdout
+    assert "DEEPSEEK_PATH_OK" in proc.stdout
 
 
 _SOURCES = sorted(

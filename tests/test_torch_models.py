@@ -1,4 +1,5 @@
-"""The port's dense LM serving path against the JAX package's, on the CPU.
+"""The port's dense LM serving path against the JAX package's, on the CPU
+(the DeepSeek family's: tests/test_torch_moe.py).
 
 Parameters are made by the JAX package's init and carried across with
 ``repro_torch.interop.lm_params_from_numpy``; inputs come from numpy seeds.
@@ -242,21 +243,27 @@ def test_serve_main_on_the_cpu(capsys):
 
 # ---------------------------------------------------------- what raises
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if get_config(n).family != "dense"])
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
+                                  if get_config(n).family not in ("dense", "moe")])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="MLA, MoE and the other LM families"):
         build_model(get_config(name).reduced())
 
 
 def test_mla_premap_and_offset_prefill_raise(tmp_path, capsys):
-    """MLA still raises; ``--premap-kernels`` premaps the suite, before
-    serving, as the reference does, into a disk cache from which the
-    reference then serves every kernel the port mapped (exact counts; a
-    kernel that misses the fast profile's 30 s deadline on a loaded host
-    counts as failed in both runs)."""
+    """MLA, ported now, matches the reference on a prefill at an offset of
+    a cache that already holds earlier entries (1e-5, the compressed cache
+    too); ``--premap-kernels`` premaps the suite, before serving, as the
+    reference does, into a disk cache from which the reference then serves
+    every kernel the port mapped (exact counts; a kernel that misses the
+    fast profile's 30 s deadline on a loaded host counts as failed in both
+    runs)."""
     import re
 
     from repro.launch.serve import premap_kernels as jpremap_kernels
+    from repro.models.attention import MLACache as JMLACache
+    from repro.models.attention import mla_attention as jmla_attention
+    from repro.models.attention import mla_init as jmla_init
 
     def counts(out):
         m = re.search(r"premap: 17 kernels on CGRA\(4x4,mesh\) in .* — "
@@ -264,8 +271,17 @@ def test_mla_premap_and_offset_prefill_raise(tmp_path, capsys):
         assert m, out
         return tuple(int(g) for g in m.groups())
 
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.mla_attention(None, None, None, None)
+    jcfg, cfg = jget_config("deepseek-v3-671b").reduced(), get_config("deepseek-v3-671b").reduced()
+    jp = jmla_init(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    p = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    old = _rand(2, 16, cfg.mla.kv_lora + cfg.mla.rope_dim, seed=14)
+    x, pos = _rand(2, 4, cfg.d_model, seed=15), np.arange(5, 9)
+    want, jcache = jmla_attention(jp, jnp.asarray(x), jnp.asarray(pos), jcfg,
+                                  cache=JMLACache(jnp.asarray(old)))
+    got, cache = attention.mla_attention(p, _t(x), torch.as_tensor(pos), cfg,
+                                         cache=attention.MLACache(_t(old)))
+    _close(got, want)
+    _close(cache.c_kv, jcache.c_kv)
     cache = str(tmp_path / "maps")
     serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                 "--premap-kernels", "4", "--cache-dir", cache,
