@@ -14,8 +14,10 @@ qwen3-0.6b at full width with attention's forward and gradient in the
 hand-written ``flash_attention`` and ``flash_attention_bwd`` kernels; serve
 deepseek-moe-16b at full width and depth (MoE layers) through the flash
 kernel, train a 4-layer cut of it, and serve a 4-layer cut of
-deepseek-v3-671b (MLA) — and fails (non-zero exit, no result line) if any
-phase fails:
+deepseek-v3-671b (MLA); serve and train hymba-1.5b (windowed GQA-5
+attention in the flash kernels beside SSD heads) and xlstm-125m (mLSTM,
+sLSTM) at full width and depth — and fails (non-zero exit, no result line)
+if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu``,
@@ -33,8 +35,10 @@ phase fails:
 6. the flash kernels against their plain version on every shape and option
    of the JAX package's flash sweep in f32 (CUDA-core kernel) and in bf16
    (tensor-core kernel), plus D = 192 and 256, f16, S below one tile, all
-   rows masked, a ragged S through the padding path and the serve shape
-   (2e-5 in f32, 2e-2 in bf16/f16); each case checks which kernel ran;
+   rows masked, a ragged S through the padding path, hymba-1.5b's prefill
+   at batch 1 (25 q / 5 kv heads: GQA group 5, D 64, S 2176) with window
+   1024 and without, in bf16 and f32, and the serve shape (2e-5 in f32,
+   2e-2 in bf16/f16); each case checks which kernel ran;
 7. serving path at full width: qwen3-0.6b (28 layers, d 1024, 16/8 heads,
    head_dim 128, vocab 151936, bf16, seeded random weights) serves 8
    requests in batches of 4, prompt 2048, 32 generated tokens; flash
@@ -52,9 +56,12 @@ phase fails:
    (``flash_attention_backward_torch``, fed the same q, k, v, output,
    log-sum-exp and d out) and against autograd through
    ``flash_attention_torch``, on every case of phase 6 (the padded one
-   through autograd of ``flash_attention_padded``), bf16 and f16 at D 64
-   and 128 with GQA groups 1, 2 and 4, window, softcap, S below one tile
-   and a ragged S, the training shape, and the q, k, v and d out that
+   through autograd of ``flash_attention_padded``; hymba's GQA-5 shape
+   with window 1024 and global, bf16 and f32, among them), bf16 and f16
+   at D 64 and 128 with GQA groups 1, 2 and 4, window, softcap, S below one tile
+   and a ragged S, the training shape, the tensor-core forward and
+   backward as the first CUDA work of a fresh host thread (the same bits
+   as on the main thread), and the q, k, v and d out that
    layers 0 and 27 see in one bf16 training step of phase 10's model;
    within 2e-5 (f32) / 2e-2 (bf16, f16) of each gradient's max |g|; the
    forward's log-sum-exp against the plain one; each case checks which
@@ -137,6 +144,29 @@ phase fails:
    teacher-forced decode steps match one parallel forward (2e-3), with
    the same rule (positions whose capacity drops differ are counted, not
    compared).
+15. the SSM and hybrid families: hymba-1.5b at full width and depth (32
+   layers, d 1600, 25 q / 5 kv heads of D 64, SSD state 16, 128 meta
+   tokens, window 1024 except on layers 0, 16 and 31, vocab 32001, bf16,
+   seeded random weights, 1.351 B parameters) serves 8 requests in batches
+   of 4 (prompt 2048, 32 tokens) through ``serve_batch``: exactly 32 flash
+   launches a prefill, all on the tensor-core forward, two prefills
+   identical; the kernel against its plain version on layers 0, 1
+   (windowed) and 31's prefill q/k/v; prefill and decode timed and
+   profiled. The flash forward at its two prefill shapes (B 4, window 1024
+   and global) timed beside its bound, and scaled_dot_product_attention at
+   the global one. In f32 at batch 1 x 2048, the prefill logits of the
+   kernel path against the plain-attention path, and a prefill plus one
+   decode step against a prefill one token longer (1e-4: the SSD state and
+   the offset KV cache carry). 4 training steps of 4 x 2048 (bf16, remat,
+   AdamW, make_state / make_step): finite losses, 64 tensor-core forward
+   launches (pass and recompute) and 32 tensor-core backward launches a
+   step; a fifth step profiled. Then xlstm-125m (12 layers, d 768, 4
+   heads, mLSTM / sLSTM alternating, vocab 50304, 112.7 M parameters) the
+   same way without attention: served, timed and profiled, 2 training
+   steps. Its f32 state carry: within 1e-4 after a 32-token prompt, and
+   after the 2048-token prompt within 10x of the rounding floor (the same
+   prefill with every embedding moved by one ulp), since its random-weight
+   recurrence amplifies f32 rounding ~1e5-fold over 2048 steps.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -164,6 +194,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api import Compiler, resolve_options  # noqa: E402
@@ -313,6 +344,29 @@ V3_TOL = 2e-3
 # a differing top-k set is a routing flip, not a fault, where the
 # reference path's k-th and (k+1)-th scores are within this
 ROUTING_TIE = 1e-5
+
+HY_ARCH = "hymba-1.5b"
+HY_PARAMS = 1_350_969_600
+HY_WINDOW = 1024
+# hymba-1.5b's prefill shape of the flash kernel: GQA group 5 (25 / 5
+# heads), D 64, the prompt after 128 meta tokens; at batch 1 in phases 6
+# and 9, at the serve batch in phase 15's timing
+HY_SHAPE = (SERVE_BATCH, 25, 5, SERVE_PROMPT + 128, 64)
+HY_CASE = (1, *HY_SHAPE[1:])
+HY_TRAIN_STEPS = 4
+XL_ARCH = "xlstm-125m"
+XL_PARAMS = 112_730_880
+XL_TRAIN_STEPS = 2
+# xLSTM's f32 state carry at 1e-4: after a prompt this long (rounding of
+# ~1e-7 grows to ~2e-5 of a logit by position 32 and ~9e-3 by 2048, in the
+# JAX package's model as in this one, measured on a CPU host); over the
+# full prompt, against a multiple of the measured rounding floor
+XL_CARRY_PROMPT = 32
+CARRY_FLOOR_FACTOR = 10
+# f32 logits of the SSM and hybrid families: the kernel path against the
+# plain-attention path, and a prefill plus one decode step against a prefill
+# one token longer (the chunked recurrence's tolerance, tests/test_models.py)
+SSM_F32_TOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -519,8 +573,9 @@ def flash_cases():
     """(label, (b, hq, hkv, s, d), dtype, options): every case of the JAX
     package's flash sweep (tests/test_kernels_flash.py) in f32 and in bf16,
     so that every option reaches both kernels, then D = 192 and 256, f16, S
-    below one tile, a ragged S through the padding path and the serve
-    shape."""
+    below one tile, a ragged S through the padding path, hymba-1.5b's
+    prefill at batch 1 (GQA group 5, D 64, S 2176) with its window and
+    without, in bf16 and f32, and the serve shape."""
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     sweep = [(f"S{s_len} D{d}", (2, 4, 2, s_len, d), {})
              for s_len in (128, 256, 512) for d in (64, 128)]
@@ -545,6 +600,9 @@ def flash_cases():
     yield "S48 (one short tile)", (2, 4, 2, 48, 64), bf16, {}
     yield "window 0 (all masked)", (1, 2, 2, 256, 128), bf16, {"window": 0}
     yield "ragged S1000 (padded)", (2, 16, 8, 1000, 128), bf16, {"window": 256, "padded": True}
+    for dtype in (bf16, f32):
+        yield f"{HY_ARCH} window {HY_WINDOW}", HY_CASE, dtype, {"window": HY_WINDOW}
+        yield f"{HY_ARCH} global", HY_CASE, dtype, {}
     yield "serve shape", SERVE_SHAPE, bf16, {}
 
 
@@ -651,6 +709,12 @@ def serve_requests(spec, params, queue: list) -> tuple[list, float]:
     return out, time.perf_counter() - t0
 
 
+def decode_pos(spec, i: int) -> int:
+    """The position of decode step ``i`` after a SERVE_PROMPT prompt, as
+    ``serve_batch`` decodes: after the prompt and any meta tokens."""
+    return SERVE_PROMPT + spec.cfg.num_meta_tokens + i
+
+
 def time_serve_steps(spec, params, prompts: np.ndarray,
                      gen: int = SERVE_GEN) -> tuple[float, float]:
     """Prefill ms and decode ms per step of one batch (host clock, each
@@ -664,7 +728,7 @@ def time_serve_steps(spec, params, prompts: np.ndarray,
     tok = logits.argmax(-1)[:, None]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = spec.decode_step(params, tok, caches, SERVE_PROMPT + i)
+        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i))
         tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
     return prefill_ms, (time.perf_counter() - t0) * 1e3 / (gen - 1)
@@ -673,7 +737,11 @@ def time_serve_steps(spec, params, prompts: np.ndarray,
 def profile_serve(spec, params, prompts: np.ndarray) -> None:
     """Where the serving time goes: a torch.profiler window over one prefill,
     then one over 4 decode steps. Prints each window's host time, the
-    device's busy share (kernel time over host time) and its top kernels."""
+    device's busy share (kernel time over host time), its kernel launches
+    and its top kernels. Only the
+    device's activity is recorded: the kernels are all it reads, and the
+    operator events of xlstm-125m's quarter-million launches take minutes
+    to sort."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -687,16 +755,15 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
         for i in range(4):
             tok = state["logits"].argmax(-1)[:, None]
             state["logits"], state["caches"] = spec.decode_step(
-                params, tok, state["caches"], SERVE_PROMPT + i)
+                params, tok, state["caches"], decode_pos(spec, i))
 
     for label, fn in (("prefill", prefill), ("4 decode steps", decode)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # kernels only: a CPU op's device time is its kernels' time again
         kernels = sorted(((e.self_device_time_total, e.count, e.key)
                           for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA
@@ -707,7 +774,8 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
             log(f"  profile {label}: device time not measured (no device events)")
             continue
         log(f"  profile {label}: host {wall_us / 1e3:.2f} ms, device busy "
-            f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}); top kernels:")
+            f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), "
+            f"{sum(k[1] for k in kernels)} kernel launches; top kernels:")
         for us, count, name in kernels[:5]:
             log(f"    {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{count:<5} {name[:70]}")
 
@@ -719,16 +787,17 @@ def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray)
     out = [logits]
     for i in range(forced.shape[1]):
         tok = torch.as_tensor(forced[:, i:i + 1], device="cuda")
-        logits, caches = spec.decode_step(params, tok, caches, SERVE_PROMPT + i)
+        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i))
         out.append(logits)
     return out
 
 
-def check_prefill_activations(spec, params, prompts: np.ndarray) -> float:
-    """The kernel on the q/k/v that the first and last layers give it in a
-    bf16 prefill of ``prompts``, against its plain version (2e-2); returns
-    the largest |kernel - plain|."""
-    layers = (0, spec.cfg.num_layers - 1)
+def check_prefill_activations(spec, params, prompts: np.ndarray,
+                              layers: tuple | None = None) -> float:
+    """The kernel on the q/k/v that ``layers`` (default: the first and the
+    last) give it in a bf16 prefill of ``prompts``, with their keywords,
+    against its plain version (2e-2); returns the largest |kernel - plain|."""
+    layers = layers or (0, spec.cfg.num_layers - 1)
     with captured_attention(layers) as seen:
         spec.prefill(params, torch.as_tensor(prompts, device="cuda"), SERVE_CACHE_LEN)
     check(sorted(seen) == list(layers), f"captured layers {sorted(seen)}, not {layers}")
@@ -742,8 +811,8 @@ def check_prefill_activations(spec, params, prompts: np.ndarray) -> float:
               and torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
               f"layer {layer} prefill activations: kernel != plain version "
               f"(max |d| {err:.3g}, tol 2e-2)")
-        log(f"  ok  layer {layer} bf16 prefill q/k/v {list(q.shape)}/{list(k.shape)}: "
-            f"max |kernel - plain| {err:.3g} (tol 2e-2, |q| max "
+        log(f"  ok  layer {layer} bf16 prefill q/k/v {list(q.shape)}/{list(k.shape)} "
+            f"window {kw.get('window')}: max |kernel - plain| {err:.3g} (tol 2e-2, |q| max "
             f"{float(q.float().abs().max()):.3g})")
         worst = max(worst, err)
     return worst
@@ -832,12 +901,20 @@ def phase_serve() -> int:
 
 # ------------------------------------------------------------------ phase 8
 
-def flash_bound(shape, itemsize: int) -> tuple[float, str]:
-    """Least time for the card at ``shape`` (causal): the FLOPs of the two
-    products over the unmasked pairs, over the bf16 tensor-core peak, or
-    q, k, v and out read or written once over HBM bandwidth."""
+def causal_pairs(s_len: int, window: int | None = None) -> int:
+    """(query, key) pairs a causal mask leaves, with ``window`` (q - k <
+    window) if given."""
+    if window is None or window >= s_len:
+        return s_len * (s_len + 1) // 2
+    return window * (window + 1) // 2 + (s_len - window) * window
+
+
+def flash_bound(shape, itemsize: int, window: int | None = None) -> tuple[float, str]:
+    """Least time for the card at ``shape`` (causal, ``window``): the FLOPs
+    of the two products over the unmasked pairs, over the bf16 tensor-core
+    peak, or q, k, v and out read or written once over HBM bandwidth."""
     b, hq, hkv, s_len, d = shape
-    flops = 4 * b * hq * d * s_len * (s_len + 1) // 2
+    flops = 4 * b * hq * d * causal_pairs(s_len, window)
     nbytes = 2 * (b * hq + b * hkv) * s_len * d * itemsize
     by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -845,31 +922,33 @@ def flash_bound(shape, itemsize: int) -> tuple[float, str]:
 
 
 def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
-                       f32: bool = True) -> dict:
-    """The kernel at ``shape`` (bf16, causal) in turns with
-    ``scaled_dot_product_attention`` (kernel, sdpa, kernel, sdpa), then its
-    plain version and, with ``f32``, the CUDA-core kernel on the same shape
-    in f32."""
+                       f32: bool = True, window: int | None = None) -> dict:
+    """The kernel at ``shape`` (bf16, causal, ``window``) in turns with
+    ``scaled_dot_product_attention`` (kernel, sdpa, kernel, sdpa; without a
+    window only: sdpa has none), then its plain version and, with ``f32``,
+    the CUDA-core kernel on the same shape in f32."""
     q, k, v = qkv(shape, torch.bfloat16, seed=1)
     kernel_ms, library_ms = [], []
     for _ in range(2):
-        kernel_ms.append(time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS,
-                                 FLASH_INNER))
-        library_ms.append(time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), TIMED_RUNS, FLASH_INNER))
+        kernel_ms.append(time_ms(lambda: flash_attention(q, k, v, window=window),
+                                 TIMED_RUNS, FLASH_INNER))
+        if window is None:
+            library_ms.append(time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), TIMED_RUNS, FLASH_INNER))
     ms = statistics.median(kernel_ms)
-    lib_ms = statistics.median(library_ms)
+    lib_ms = statistics.median(library_ms) if library_ms else None
     # one launch between the events, the host's enqueue gap included
-    single_ms = time_ms(lambda: flash_attention(q, k, v), TIMED_RUNS)
-    plain_ms = time_ms(lambda: flash_attention_torch(q, k, v), 3)
-    bound_ms, bound_by = flash_bound(shape, q.element_size())
+    single_ms = time_ms(lambda: flash_attention(q, k, v, window=window), TIMED_RUNS)
+    plain_ms = time_ms(lambda: flash_attention_torch(q, k, v, window=window), 3)
+    bound_ms, bound_by = flash_bound(shape, q.element_size(), window)
     b, hq, hkv, s_len, d = shape
-    flops = 4 * b * hq * d * s_len * (s_len + 1) // 2
-    log(f"  {label} {list(shape)} bf16 causal, tensor-core kernel: "
-        f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms in turns with "
-        f"scaled_dot_product_attention {', '.join(f'{t:.4f}' for t in library_ms)} ms "
+    flops = 4 * b * hq * d * causal_pairs(s_len, window)
+    sdpa = (f" in turns with scaled_dot_product_attention "
+            f"{', '.join(f'{t:.4f}' for t in library_ms)} ms" if library_ms else "")
+    log(f"  {label} {list(shape)} bf16 causal{f' window {window}' if window else ''}, "
+        f"tensor-core kernel: {', '.join(f'{t:.4f}' for t in kernel_ms)} ms{sdpa} "
         f"(medians of {TIMED_RUNS} x {FLASH_INNER} back to back); plain {plain_ms:.3f} ms; "
-        f"bound {bound_ms:.4f} ms "
+        f"bound {bound_ms:.4f} ms ({flops:.4g} FLOP) "
         f"by {bound_by}, {bound_ms / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s; "
         f"one launch alone between the events {single_ms:.4f} ms")
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -888,7 +967,8 @@ def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
 
 def flash_bwd_cases():
     """Phase 6's cases (the JAX flash sweep in f32 and bf16, D 192/256,
-    f16, S 48, window 0, the ragged S through the padding path), then the
+    f16, S 48, window 0, the ragged S through the padding path, hymba's
+    GQA-5 shape with window 1024 and global in bf16 and f32), then the
     tensor-core backward's head dims and options in bf16 and f16 (GQA
     groups 1, 2 and 4, window, softcap, S below one tile, a ragged S that
     the kernels see unpadded), then the training shape."""
@@ -1026,14 +1106,50 @@ def check_bwd_case(label: str, q, k, v, do, opts: dict) -> float:
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
 
+def check_fresh_thread() -> None:
+    """The tensor-core forward and backward at hymba's shape (bf16, window
+    1024) as the first CUDA work of a new host thread, as autograd's device
+    thread meets them when the flash backward is the first node it runs:
+    the same bits as on the main thread. (Before the library made the
+    device's context current itself, the backward's TMA encoding failed
+    there with CUresult 201.)"""
+    q, k, v = qkv(HY_CASE, torch.bfloat16, seed=4)
+    do = qkv(HY_CASE, torch.bfloat16, seed=5)[0]
+    kw = dict(sm_scale=HY_CASE[-1] ** -0.5, window=HY_WINDOW)
+    o, lse = flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    calls = {"forward": lambda: (flash_attention(q, k, v, **kw),),
+             "backward": lambda: flash_attention_backward(q, k, v, o, lse, do, **kw)}
+    for name, fn in calls.items():
+        out = {}
+
+        def worker(fn=fn, out=out):
+            try:
+                out["got"] = fn()
+                torch.cuda.synchronize()
+            except Exception as e:      # noqa: BLE001 - checked below
+                out["err"] = repr(e)
+
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join()
+        check("err" not in out, f"tensor-core {name} in a fresh thread: {out.get('err')}")
+        check(all(torch.equal(a, b) for a, b in zip(out["got"], fn())),
+              f"tensor-core {name} in a fresh thread != on the main thread")
+        log(f"  ok  tensor-core {name} {list(HY_CASE)} bf16 window {HY_WINDOW} as a fresh "
+            "thread's first CUDA work: the main thread's bits")
+
+
 def phase_flash_bwd() -> float:
-    """Every case of flash_bwd_cases on seeded inputs, then layers 0 and 27
-    of a training step. Returns the largest |kernel - plain| seen."""
+    """Every case of flash_bwd_cases on seeded inputs, the tensor-core
+    kernels in a fresh thread, then layers 0 and 27 of a training step.
+    Returns the largest |kernel - plain| seen."""
     worst = 0.0
     for label, shape, dtype, opts in flash_bwd_cases():
         q, k, v = qkv(shape, dtype)
         do = qkv(shape, dtype, seed=1)[0]
         worst = max(worst, check_bwd_case(label, q, k, v, do, opts))
+    check_fresh_thread()
     for label, q, k, v, do, kw in training_activations():
         worst = max(worst, check_bwd_case(label, q, k, v, do, kw))
     return worst
@@ -2040,7 +2156,8 @@ def free_device(after: str) -> None:
     next one, and say how much stays allocated."""
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  after {after}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    log(f"  after {after}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"script wall {time.perf_counter() - T_START:.1f} s")
 
 
 def phase_deepseek() -> tuple[int, int, float]:
@@ -2068,6 +2185,246 @@ def phase_deepseek() -> tuple[int, int, float]:
         f"{serve_launches}, training {fwd}), backward {bwd}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return serve_launches + fwd, bwd, err
+
+
+# ----------------------------------------------------------------- phase 15
+
+def family_serve(cfg, seed: int) -> dict:
+    """Serve SERVE_REQUESTS prompts in batches through ``serve_batch``,
+    time one batch's prefill and decode, profile them, and check that two
+    prefills of one batch give the same logits. Returns the model, its
+    parameter count, the first batch's prompts, and the flash launches of
+    the serving run and of one prefill (with their tensor-core share)."""
+    spec = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = spec.init(0, "cuda")
+    n_params = spec.param_count(params)
+    rng = np.random.default_rng(seed)
+    queue = [rng.integers(1, cfg.vocab, size=SERVE_PROMPT) for _ in range(SERVE_REQUESTS)]
+    prompts = np.stack(queue[:SERVE_BATCH])
+    zero_flash_counts()
+    batches, serve_s = serve_requests(spec, params, queue)
+    launches, tc = flash_attention.launches, flash_attention.tensor_core_launches
+    for toks in batches:
+        check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{cfg.name}: served tokens {toks.shape} out of shape or vocab")
+    n_tokens = SERVE_REQUESTS * SERVE_GEN
+    prefill_ms, decode_ms = time_serve_steps(spec, params, prompts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {cfg.name}: {n_params / 1e6:.3f} M params ({n_params * 2 / 1e9:.3f} GB bf16), "
+        f"{SERVE_REQUESTS} requests in {len(batches)} batches of {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_GEN} generated tokens each; flash launches {launches}, "
+        f"{tc} on the tensor-core forward")
+    log(f"  served {n_tokens} tokens in {serve_s:.3f} s ({n_tokens / serve_s:.1f} tok/s); "
+        f"prefill {prefill_ms:.2f} ms per batch of {SERVE_BATCH} x {SERVE_PROMPT}, decode "
+        f"{decode_ms:.2f} ms per step; peak device memory {peak_gib:.2f} GiB")
+    t0 = time.perf_counter()
+    profile_serve(spec, params, prompts)
+    log(f"  (the two profiles took {time.perf_counter() - t0:.1f} s with their processing)")
+    tokens = torch.as_tensor(prompts, device="cuda")
+    zero_flash_counts()
+    first = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+    one, one_tc = flash_attention.launches, flash_attention.tensor_core_launches
+    second = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+    check(torch.equal(first, second), f"{cfg.name}: two prefills of one batch gave "
+          "different logits")
+    log(f"  two prefills of one batch: identical logits; one prefill launched flash "
+        f"{one} times, {one_tc} on the tensor-core forward")
+    return dict(spec=spec, params=params, n_params=n_params, launches=launches, tc=tc,
+                batches=len(batches), one=one, one_tc=one_tc, prompts=prompts)
+
+
+def carried_logits(spec, params, prompt: np.ndarray):
+    """(a prefill of ``prompt`` less its last token, then one decode step of
+    that token; a prefill of the whole ``prompt``): the two paths' logits."""
+    s = prompt.shape[1] - 1
+    _, caches = spec.prefill(params, torch.as_tensor(prompt[:, :-1], device="cuda"),
+                             SERVE_CACHE_LEN)
+    got, _ = spec.decode_step(params, torch.as_tensor(prompt[:, -1:], device="cuda"),
+                              caches, s + spec.cfg.num_meta_tokens)
+    del caches
+    want, _ = spec.prefill(params, torch.as_tensor(prompt, device="cuda"), SERVE_CACHE_LEN)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          f"{spec.cfg.name} f32: non-finite logits")
+    return got, want
+
+
+def carry_check(spec, params, prompt: np.ndarray) -> float:
+    """The two paths of :func:`carried_logits` within SSM_F32_TOL; returns
+    max |d|."""
+    got, want = carried_logits(spec, params, prompt)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=SSM_F32_TOL, rtol=SSM_F32_TOL),
+          f"{spec.cfg.name} f32: prefill of {prompt.shape[1] - 1} + one decode step != a "
+          f"prefill one token longer (max |d| {err:.3g}, tol {SSM_F32_TOL})")
+    return err
+
+
+def rounding_floor(spec, params, prompt: np.ndarray) -> float:
+    """How far f32 rounding alone moves the last logits of a prefill of
+    ``prompt``: max |d| between the prefill and the same prefill with every
+    embedding entry moved by one ulp. xLSTM's random-weight recurrence
+    amplifies such a change ~1e5-fold over 2048 steps (the JAX package's
+    alike), so two paths that round differently anywhere in a long prefix
+    differ by this much whatever they carry."""
+    tokens = torch.as_tensor(prompt, device="cuda")
+    want = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+    moved = dict(params, embed=torch.nextafter(params["embed"],
+                                               torch.full_like(params["embed"], torch.inf)))
+    got = spec.prefill(moved, tokens, SERVE_CACHE_LEN)[0]
+    return float((got - want).abs().max())
+
+
+def family_f32(cfg, seed: int) -> None:
+    """f32 at full width and depth, batch 1: for hymba, the prefill logits
+    of the kernel path against the plain-attention path; then the state
+    carry (:func:`carry_check`; xLSTM's against its rounding floor over the
+    full prompt)."""
+    spec = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    params = spec.init(0, "cuda")
+    prompt = np.random.default_rng(seed).integers(1, cfg.vocab, size=(1, SERVE_PROMPT + 1))
+    if cfg.family == "hybrid":
+        tokens = torch.as_tensor(prompt[:, :-1], device="cuda")
+        zero_flash_counts()
+        got = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+        check(flash_attention.launches == cfg.num_layers
+              and flash_attention.tensor_core_launches == 0,
+              f"{cfg.name} f32 prefill: {flash_attention.launches} flash launches "
+              f"({flash_attention.tensor_core_launches} tensor-core), not "
+              f"{cfg.num_layers} on CUDA cores")
+        with plain_attention():
+            want = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, atol=SSM_F32_TOL, rtol=SSM_F32_TOL),
+              f"{cfg.name} f32 prefill: kernel path != plain-attention path "
+              f"(max |d| {err:.3g}, tol {SSM_F32_TOL})")
+        log(f"  f32 full width and depth, batch 1 x {SERVE_PROMPT}: prefill logits, kernel "
+            f"path vs plain attention, max |d| {err:.3g} (tol {SSM_F32_TOL}, logits max |x| "
+            f"{float(got.abs().max()):.3g})")
+        err = carry_check(spec, params, prompt)
+        log(f"  f32 full width and depth, batch 1: prefill of {SERVE_PROMPT} + one decode step "
+            f"vs a prefill of {SERVE_PROMPT + 1}: logits max |d| {err:.3g} (tol {SSM_F32_TOL})")
+        return
+    # xLSTM: the carry within SSM_F32_TOL over a prompt short enough that
+    # rounding is not amplified past it; over the full prompt, within
+    # CARRY_FLOOR_FACTOR of the rounding floor measured on the same prompt
+    err = carry_check(spec, params, prompt[:, :XL_CARRY_PROMPT + 1])
+    log(f"  f32 full width and depth, batch 1: prefill of {XL_CARRY_PROMPT} + one decode step "
+        f"vs a prefill of {XL_CARRY_PROMPT + 1}: logits max |d| {err:.3g} (tol {SSM_F32_TOL})")
+    got, want = carried_logits(spec, params, prompt)
+    err = float((got - want).abs().max())
+    floor = rounding_floor(spec, params, prompt)
+    check(err <= CARRY_FLOOR_FACTOR * floor,
+          f"{cfg.name} f32: prefill of {SERVE_PROMPT} + one decode step vs a prefill of "
+          f"{SERVE_PROMPT + 1}: max |d| {err:.3g} > {CARRY_FLOOR_FACTOR} x the rounding "
+          f"floor {floor:.3g}")
+    log(f"  f32 full width and depth, batch 1: prefill of {SERVE_PROMPT} + one decode step vs "
+        f"a prefill of {SERVE_PROMPT + 1}: logits max |d| {err:.3g}; one ulp on every "
+        f"embedding moves the same prefill's logits by {floor:.3g} (gate: {CARRY_FLOOR_FACTOR}x "
+        f"that; a lost or misplaced state moves them by O(1))")
+
+
+def family_train(cfg, steps: int) -> tuple:
+    """``steps`` of 4 x 2048 through make_state / make_step (AdamW at the
+    training CLI's defaults, bf16, remat), then, for hymba, one more step
+    under torch.profiler (an xLSTM step is ~1,000,000 launches); returns
+    the flash launch counts of the ``steps`` (forward, tensor-core,
+    backward, tensor-core backward)."""
+    spec = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=max(10, steps // 20))
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state(spec, opt_cfg, 0, compression=False, device="cuda")
+    step = make_step(spec, opt_cfg, compression=False)
+    zero_flash_counts()
+    losses, times = [], []
+    for i in range(steps):
+        batch = data.batch_at(i, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = flash_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"{cfg.name} training: non-finite losses {losses}")
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fwd, tc, bwd, tc_bwd = counts
+    log(f"  {cfg.name} training: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat, "
+        f"AdamW; losses {', '.join(f'{x:.4f}' for x in losses)} (ln vocab "
+        f"{np.log(cfg.vocab):.4f}); flash launches forward {fwd}, tensor-core {tc}, backward "
+        f"{bwd}, tensor-core backward {tc_bwd}")
+    log(f"  step times {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of steps "
+        f"2-{steps} {ms:.2f} ms/step ({tokens / ms * 1e3:.0f} tokens/s); peak device memory "
+        f"{peak_gib:.2f} GiB")
+    if cfg.family == "hybrid":
+        profile_step(spec, opt_cfg, state, data.batch_at(steps, "cuda"))
+    return counts
+
+
+def phase_ssm_hybrid() -> tuple[int, int, float]:
+    """The SSM and hybrid families (see the module docstring, item 15).
+    Returns the flash forward and backward launches of the phase's serving
+    and training runs and the largest |kernel - plain| on hymba's prefill
+    activations."""
+    t_phase = time.perf_counter()
+    cfg = get_config(HY_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab, cfg.sliding_window, cfg.num_meta_tokens, cfg.ssm.state_dim,
+           cfg.ssm.chunk, cfg.dtype, cfg.remat)
+          == (32, 1600, 25, 5, 64, 5504, 32001, HY_WINDOW, 128, 16, 128, torch.bfloat16,
+              True), f"{HY_ARCH} is not at full width and depth")
+    windows = lm.layer_windows(cfg, cfg.num_layers)
+    check([i for i, w in enumerate(windows) if not w] == [0, 16, 31]
+          and set(windows.tolist()) == {0, HY_WINDOW}, f"{HY_ARCH} windows {windows}")
+    run = family_serve(cfg, seed=17)
+    check(run["n_params"] == HY_PARAMS, f"{HY_ARCH}: {run['n_params']} params")
+    check(run["launches"] == cfg.num_layers * run["batches"] and run["tc"] == run["launches"]
+          and run["one"] == run["one_tc"] == cfg.num_layers,
+          f"{HY_ARCH} serving: flash launches {run['launches']} ({run['tc']} tensor-core), "
+          f"one prefill {run['one']} ({run['one_tc']}); want {cfg.num_layers} a prefill, "
+          "all tensor-core")
+    hy_err = check_prefill_activations(run["spec"], run["params"], run["prompts"],
+                                       (0, 1, cfg.num_layers - 1))
+    serve_launches = run["launches"]
+    del run
+    free_device(f"{HY_ARCH} serving")
+    for window in (HY_WINDOW, None):
+        phase_flash_timing(HY_SHAPE, f"{HY_ARCH} prefill shape", f32=False, window=window)
+    family_f32(cfg, seed=18)
+    free_device(f"{HY_ARCH} f32 checks")
+    fwd, tc, bwd, tc_bwd = family_train(cfg, HY_TRAIN_STEPS)
+    # remat: each layer's forward runs twice a step (the pass and the recompute)
+    want = (2 * cfg.num_layers * HY_TRAIN_STEPS, cfg.num_layers * HY_TRAIN_STEPS)
+    check((fwd, bwd) == want and tc == fwd and tc_bwd == bwd,
+          f"{HY_ARCH} training: flash forward {fwd} ({tc} tensor-core), backward {bwd} "
+          f"({tc_bwd} tensor-core); want {want[0]} and {want[1]}, all tensor-core")
+    free_device(f"{HY_ARCH} training")
+
+    cfg = get_config(XL_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.vocab, cfg.ssm.chunk,
+           cfg.dtype, cfg.remat) == (12, 768, 4, 0, 50304, 128, torch.bfloat16, True),
+          f"{XL_ARCH} is not at full width and depth")
+    run = family_serve(cfg, seed=19)
+    check(run["n_params"] == XL_PARAMS, f"{XL_ARCH}: {run['n_params']} params")
+    check(run["launches"] == run["one"] == 0, f"{XL_ARCH} launched flash attention")
+    del run
+    free_device(f"{XL_ARCH} serving")
+    family_f32(cfg, seed=20)
+    free_device(f"{XL_ARCH} f32 check")
+    xl_counts = family_train(cfg, XL_TRAIN_STEPS)
+    check(xl_counts == (0, 0, 0, 0), f"{XL_ARCH} training launched flash attention")
+    free_device(f"{XL_ARCH} training")
+    log(f"  phase 15 flash launches: forward {serve_launches + fwd} (serving "
+        f"{serve_launches}, training {fwd}), backward {bwd}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return serve_launches + fwd, bwd, hy_err
 
 
 def main() -> int:
@@ -2156,6 +2513,13 @@ def main() -> int:
         f"{V3_LAYERS} layers")
     ds_fwd, ds_bwd, ds_err = phase_deepseek()
 
+    log(f"[15] the SSM and hybrid families: {HY_ARCH} at full width and depth served "
+        f"({SERVE_REQUESTS} requests, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_GEN} tokens), the flash kernel at its prefill shapes, f32 checks, "
+        f"{HY_TRAIN_STEPS} training steps; {XL_ARCH} served, checked in f32, "
+        f"{XL_TRAIN_STEPS} training steps")
+    hy_fwd, hy_bwd, hy_err = phase_ssm_hybrid()
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
@@ -2173,8 +2537,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": flash_launches + ds_fwd,
-        "max_abs_err": max(flash_err, ds_err),
+        "launches": flash_launches + ds_fwd + hy_fwd,
+        "max_abs_err": max(flash_err, ds_err, hy_err),
         "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"],
@@ -2185,7 +2549,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": bwd_launches + ds_bwd,
+        "launches": bwd_launches + ds_bwd + hy_bwd,
         "max_abs_err": bwd_err,
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],

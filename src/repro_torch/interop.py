@@ -91,12 +91,15 @@ def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
 
     ``tree`` has the JAX package's keys, with each layer stack's leaves
     stacked on a leading ``[L, ...]`` axis; each stack becomes a list of L
-    per-layer dicts, as this package's ``models.build`` keeps them. Dtypes
-    are kept.
+    per-layer dicts, as this package's ``models.build`` keeps them. A list
+    (the SSM and hybrid families' ``"layers"``, one dict per layer) is
+    carried element by element. Dtypes are kept.
     """
     def convert(node, layer=None):
         if isinstance(node, dict):
             return {k: convert(v, layer) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v, layer) for v in node]
         return _tensor(node if layer is None else node[layer], device)
 
     out = {}
@@ -112,9 +115,10 @@ def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
 def lm_params_to_numpy(tree: dict) -> dict:
     """The inverse layout of :func:`lm_params_from_numpy`: each ``*_stack``
     list of L per-layer dicts becomes one dict whose leaves are stacked on a
-    leading ``[L, ...]`` axis, as the JAX package keeps them; every tensor
-    becomes a numpy array on the host. numpy has no bfloat16, so bf16
-    leaves come back as float32 (exactly: every bf16 value is an f32)."""
+    leading ``[L, ...]`` axis, as the JAX package keeps them; any other
+    list stays a list, element by element; every tensor becomes a numpy
+    array on the host. numpy has no bfloat16, so bf16 leaves come back as
+    float32 (exactly: every bf16 value is an f32)."""
     def host(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -128,6 +132,8 @@ def lm_params_to_numpy(tree: dict) -> dict:
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
         return host(node)
 
     return {key: stack(node) if key.endswith("_stack") else convert(node)

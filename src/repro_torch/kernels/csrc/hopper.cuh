@@ -460,8 +460,19 @@ constexpr int ERR_ENCODE = 100001;          // + CUresult of a refused encoding
 
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that
 // the library needs no -lcuda. Returns 0 or an error code.
+//
+// The encoder is a driver call and needs a current context. A host thread
+// that has made no runtime call yet has none (CUresult 201): autograd's
+// device thread, when this library's backward is the first node it runs,
+// since PyTorch sets a thread's device only where it differs from the one
+// the thread already reports. cudaSetDevice on the thread's own device
+// makes that device's primary context current first.
 inline int encoder(EncodeTiled* fn) {
   static EncodeTiled cached = nullptr;
+  int device = 0;
+  cudaError_t bound = cudaGetDevice(&device);
+  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   if (cached == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;

@@ -1,14 +1,17 @@
-"""Batched serving: prefill + decode loop with KV caches.
+"""Batched serving: prefill + decode loop with KV and recurrent-state caches.
 
 The PyTorch counterpart of the JAX package's ``src/repro/launch/serve.py``.
 A request queue is drained in fixed-size batches; each batch is prefilled in
 parallel (attention in the hand-written flash-attention kernel) and decoded
-token by token with greedy sampling over the layers' KV caches. Runs the
-dense family (qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), full size or
-``--reduced``, on the GPU unless ``--device cpu``:
+token by token with greedy sampling over the family's caches (KV,
+compressed MLA latents, recurrent state). Runs the dense family
+(qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), the MoE family
+(deepseek-moe-16b, deepseek-v3-671b), the SSM family (xlstm-125m) and the
+hybrid family (hymba-1.5b), full size or ``--reduced``, on the GPU unless
+``--device cpu``:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --reduced --device cpu --requests 16 --batch 4 --prompt-len 32 --gen 16
 
 Weights are random, from a ``torch.Generator`` seeded by ``--seed``.
@@ -37,15 +40,17 @@ from ..models import build_model
 
 def serve_batch(spec, params, prompts: np.ndarray, gen: int, cache_len: int) -> np.ndarray:
     """Prefill ``prompts`` [b, s] and greedily decode ``gen`` tokens;
-    returns them as [b, gen] int64 on the host."""
+    returns them as [b, gen] int64 on the host. Decode positions follow the
+    prompt and any meta tokens before it."""
     s = prompts.shape[1]
+    base = s + spec.cfg.num_meta_tokens
     device = params["embed"].device
     logits, caches = spec.prefill(params, torch.as_tensor(prompts, device=device),
                                   cache_len)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for i in range(gen - 1):
-        logits, caches = spec.decode_step(params, tok, caches, s + i)
+        logits, caches = spec.decode_step(params, tok, caches, base + i)
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1).cpu().numpy()

@@ -195,6 +195,67 @@ def test_deepseek_v3_reduced_trains_on_the_card(cuda):
     assert abs(float(m["loss"]) - float(m["ce"] + m["aux"] + cfg.mtp_weight * m["mtp"])) < 1e-4
 
 
+def test_hymba_reduced_serves_and_trains_on_the_card(cuda):
+    """A 5-layer reduced hymba-1.5b at head dim 64 in bf16 on the card (GQA
+    group 2, windows on layers 1 and 3): one tensor-core flash launch per
+    layer in a prefill of meta tokens plus prompt, the same logits from two
+    prefills, tokens in range, and a training step whose backward runs the
+    tensor-core kernels once per layer with finite loss; in f32, the card's
+    prefill and decode logits match the CPU path's within 1e-4."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), num_layers=5,
+                              head_dim=64, dtype=torch.bfloat16)
+    spec = build_model(cfg)
+    params = spec.init(0)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(2, 120))
+    tc = flash_attention.tensor_core_launches
+    a = spec.prefill(params, torch.as_tensor(prompts, device="cuda"), 130)[0]
+    assert flash_attention.tensor_core_launches == tc + cfg.num_layers
+    b = spec.prefill(params, torch.as_tensor(prompts, device="cuda"), 130)[0]
+    assert torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+    tokens = serve_batch(spec, params, prompts, 4, 130)
+    assert tokens.shape == (2, 4) and ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device=cuda)
+    tc_bwd = flash_attention.tensor_core_backward_launches
+    _, m = train.make_step(spec, opt_cfg, compression=False)(
+        state, SyntheticLM(cfg, 2, 120, seed=0).batch_at(0, cuda))
+    assert flash_attention.tensor_core_backward_launches - tc_bwd == cfg.num_layers
+    assert bool(torch.isfinite(m["loss"]))
+    spec32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    p32 = spec32.init(0, cuda)
+    got, caches = spec32.prefill(p32, torch.as_tensor(prompts, device=cuda), 130)
+    want, cpu_caches = spec32.prefill(_to(p32, "cpu"), torch.as_tensor(prompts), 130)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    pos = 120 + cfg.num_meta_tokens
+    tok = torch.as_tensor(prompts[:, :1])
+    got, _ = spec32.decode_step(p32, tok.to(cuda), caches, pos)
+    want, _ = spec32.decode_step(_to(p32, "cpu"), tok, cpu_caches, pos)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_xlstm_reduced_matches_the_cpu_on_the_card(cuda):
+    """Reduced xlstm-125m in f32 on the card: prefill and two decode steps
+    match the CPU path within 1e-4; a training step's loss is finite."""
+    cfg = get_config("xlstm-125m").reduced()
+    spec = build_model(cfg)
+    params = spec.init(0, cuda)
+    cpu = _to(params, "cpu")
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(1, cfg.vocab, size=(2, 50)))
+    got, states = spec.prefill(params, prompts.to(cuda), 60)
+    want, cpu_states = spec.prefill(cpu, prompts, 60)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for i in range(2):
+        tok = prompts[:, i:i + 1]
+        got, states = spec.decode_step(params, tok.to(cuda), states, 50 + i)
+        want, cpu_states = spec.decode_step(cpu, tok, cpu_states, 50 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device=cuda)
+    _, m = train.make_step(spec, opt_cfg, compression=False)(
+        state, SyntheticLM(cfg, 2, 64, seed=0).batch_at(0, cuda))
+    assert bool(torch.isfinite(m["loss"]))
+
+
 @pytest.mark.parametrize("fabric", [dict(rows=3, cols=3),
                                     dict(rows=4, cols=4, topology="torus"),
                                     dict(rows=4, cols=4, topology="one-hop")],
@@ -279,6 +340,11 @@ def _tensor_core(dtype, d) -> bool:
     ((1, 2, 2, 256, 64), torch.bfloat16, {"causal": False, "window": 64}),
     ((1, 8, 1, 512, 128), torch.bfloat16, {}),
     ((1, 2, 2, 256, 128), torch.bfloat16, {"window": 0}),
+    # hymba-1.5b's prefill: GQA group 5 (25 / 5 heads), D 64, S 2048 + 128
+    # meta tokens, window 1024 on 29 of its 32 layers
+    ((1, 25, 5, 2176, 64), torch.bfloat16, {"window": 1024}),
+    ((1, 25, 5, 2176, 64), torch.bfloat16, {}),
+    ((1, 25, 5, 2176, 64), torch.float32, {"window": 1024}),
 ])
 def test_flash_kernel_matches_plain(cuda, case):
     shape, dtype, kw = case
@@ -379,6 +445,8 @@ def _tensor_core_bwd(dtype, d) -> bool:
     ((1, 4, 1, 200, 64), torch.float16, {"causal": False}),
     ((1, 2, 2, 256, 128), torch.float16, {"causal": False, "window": 64}),
     ((2, 4, 2, 48, 128), torch.bfloat16, {"window": 16}),
+    # hymba-1.5b's training shape: GQA group 5, D 64, window 1024
+    ((1, 25, 5, 2176, 64), torch.bfloat16, {"window": 1024}),
 ])
 def test_flash_backward_kernel_matches_plain(cuda, case):
     shape, dtype, kw = case
@@ -406,6 +474,40 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
         assert _rel_err(g, w) <= tol
     if kw.get("window") == 0:
         assert all(torch.equal(g, torch.zeros_like(g)) for g in got)
+
+
+@pytest.mark.parametrize("backward", [True, False], ids=["backward", "forward"])
+def test_tensor_core_kernels_run_first_in_a_fresh_thread(cuda, backward):
+    """A host thread whose first CUDA work is a tensor-core kernel (as
+    autograd's device thread is when the flash backward is the first node
+    it runs): its TMA descriptors are encoded in a context the library
+    makes current, and the result equals the main thread's."""
+    import threading
+
+    q, k, v = _qkv(1, 25, 5, 256, 64, torch.bfloat16, cuda)
+    do = _qkv(1, 25, 5, 256, 64, torch.bfloat16, cuda, seed=1)[0]
+    o, lse = flash_attention_lse(q, k, v, sm_scale=0.125, window=100)
+    torch.cuda.synchronize()
+
+    def run():
+        if backward:
+            return flash_attention_backward(q, k, v, o, lse, do, sm_scale=0.125, window=100)
+        return (flash_attention(q, k, v, sm_scale=0.125, window=100),)
+
+    out = {}
+
+    def worker():
+        try:
+            out["got"] = run()
+            torch.cuda.synchronize()
+        except Exception as e:          # noqa: BLE001 - re-raised below
+            out["err"] = e
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert "err" not in out, out.get("err")
+    assert all(torch.equal(a, b) for a, b in zip(out["got"], run()))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

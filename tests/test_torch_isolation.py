@@ -228,6 +228,38 @@ def test_deepseek_serve_and_train_run_without_jax_or_the_jax_package():
     assert "DEEPSEEK_PATH_OK" in proc.stdout
 
 
+_SSM_HYBRID_PATH = r'''
+import sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.launch import serve, train
+for arch in ("xlstm-125m", "hymba-1.5b"):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--requests", "2", "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+    with tempfile.TemporaryDirectory() as ckpt:
+        report = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--steps", "2", "--batch", "2", "--seq", "24", "--ckpt-dir", ckpt])
+    assert report.steps_done == 2 and report.restarts == 0, report
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("SSM_HYBRID_PATH_OK")
+'''
+
+
+def test_ssm_and_hybrid_serve_and_train_run_without_jax_or_the_jax_package():
+    """The SSM and hybrid families' paths: xlstm-125m (mLSTM, sLSTM) and
+    hymba-1.5b (meta tokens, SSD, windowed attention through the flash
+    wrapper), each served and trained."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _SSM_HYBRID_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("served 2 requests / 6 tokens") == 2
+    assert proc.stdout.count("done: 2 steps") == 2
+    assert "SSM_HYBRID_PATH_OK" in proc.stdout
+
+
 _SOURCES = sorted(
     [p for p in (ROOT / "src" / "repro_torch").rglob("*")
      if p.suffix in (".py", ".cu", ".cuh")]

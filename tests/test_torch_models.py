@@ -243,8 +243,8 @@ def test_serve_main_on_the_cpu(capsys):
 
 # ---------------------------------------------------------- what raises
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
-                                  if get_config(n).family not in ("dense", "moe")])
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if get_config(n).family
+                                  not in ("dense", "moe", "ssm", "hybrid")])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="MLA, MoE and the other LM families"):
         build_model(get_config(name).reduced())
