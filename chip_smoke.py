@@ -16,8 +16,12 @@ deepseek-moe-16b at full width and depth (MoE layers) through the flash
 kernel, train a 4-layer cut of it, and serve a 4-layer cut of
 deepseek-v3-671b (MLA); serve and train hymba-1.5b (windowed GQA-5
 attention in the flash kernels beside SSD heads) and xlstm-125m (mLSTM,
-sLSTM) at full width and depth — and fails (non-zero exit, no result line)
-if any phase fails:
+sLSTM) at full width and depth; serve and train paligemma-3b (its text
+prefill's MQA attention at D 256 in the flash kernel, prefix-LM training on
+the scores path) and whisper-small (its decoder's self-attention in the
+flash kernels, the encoder and cross-attention on the scores path) at full
+width and depth — and fails (non-zero exit, no result line) if any phase
+fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu``,
@@ -167,6 +171,39 @@ if any phase fails:
    after the 2048-token prompt within 10x of the rounding floor (the same
    prefill with every embedding moved by one ulp), since its random-weight
    recurrence amplifies f32 rounding ~1e5-fold over 2048 steps.
+16. the vision-language and audio families: paligemma-3b at full width
+   and depth (18 layers, d 2048, 8 q / 1 kv heads of D 256, GeGLU d_ff
+   16384, vocab 257216, tied and scaled embeddings, prefix-LM over 256
+   prefix embeddings, bf16, seeded random weights, 2.509 B parameters)
+   serves 8 requests in batches of 4 (prompt 2048, 32 tokens) through
+   ``serve_batch``: the prefill is text only, as the reference's, so
+   exactly 18 flash launches a prefill, all on the tensor-core forward at
+   GQA group 8 and D 256; decode runs at the reference's positions past the
+   image prefix, past the end of the cache, each write clamped into its
+   last slot; two prefills identical; the kernel against its plain version
+   on layers 0 and 17's prefill q/k/v (2e-2); prefill and decode timed and
+   profiled; the flash forward timed at (4, 8, 1, 2048, 256) beside its
+   bound and scaled_dot_product_attention. In f32 at 2 layers and batch 1
+   x 2048, prefill and 8 teacher-forced decode steps through the kernel
+   path against the plain-attention path (1e-4). 2 training steps of 2 x
+   2048 tokens + 256 prefix embeddings (bf16, remat, AdamW, make_state /
+   make_step): finite losses, no flash launch (prefix-LM attends on the
+   scores path), peak memory logged. Then whisper-small at full width and
+   depth (12 encoder + 12 decoder layers, d 768, 12 / 12 heads of D 64,
+   d_ff 3072, vocab 51865, 1500 frames, bf16, 263.3 M parameters) serves 8
+   requests in batches of 4 with zero frames, as the reference does
+   (prompt 224, 32 tokens): exactly 12 tensor-core flash launches a
+   prefill (the decoder's self-attention, 224 rows padded to 256), two
+   prefills identical, layers 0 and 11's q/k/v against the plain version,
+   timed and profiled, the kernel timed at (4, 12, 12, 256, 64); in f32 at
+   batch 1 with random frames, prefill and 8 teacher-forced decode steps
+   against the plain-attention path (1e-4); 2 training steps of 4 x 448
+   tokens with 1500 random frames: finite losses, 24 tensor-core forward
+   (pass and recompute) and 12 tensor-core backward launches a step; then
+   decoder layers 0 and 11's q, k, v and d out, captured in one such bf16
+   step (448 rows, padded to 512), hold the forward (2e-2) and, through
+   the padded path under autograd, the tensor-core backward against their
+   plain versions (as phase 9 holds qwen3-0.6b's training layers).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -218,7 +255,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.ops import cgra_run, compile_program  # noqa: E402
 from repro_torch.kernels.ref import cgra_sim_reference  # noqa: E402
-from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch.serve import decode_start, prefill_batch, serve_batch  # noqa: E402
 from repro_torch.launch.train import make_state, make_step  # noqa: E402
 from repro_torch.models import attention, build_model, moe  # noqa: E402
 from repro_torch.models import build as lm  # noqa: E402
@@ -248,7 +285,14 @@ SERVE_REQUESTS = 8
 SERVE_BATCH = 4
 SERVE_PROMPT = 2048
 SERVE_GEN = 32
-SERVE_CACHE_LEN = SERVE_PROMPT + SERVE_GEN + 8     # as the serve CLI sizes it
+
+
+def cache_len_for(prompt_len: int) -> int:
+    """The cache length the serve CLI gives a prompt of ``prompt_len``."""
+    return prompt_len + SERVE_GEN + 8
+
+
+SERVE_CACHE_LEN = cache_len_for(SERVE_PROMPT)
 # the serve shape of the flash kernel: qwen3-0.6b prefill of one batch
 SERVE_SHAPE = (SERVE_BATCH, 16, 8, SERVE_PROMPT, 128)
 # f32 logits of the kernel path against the plain-attention path. Logits are
@@ -367,6 +411,29 @@ CARRY_FLOOR_FACTOR = 10
 # plain-attention path, and a prefill plus one decode step against a prefill
 # one token longer (the chunked recurrence's tolerance, tests/test_models.py)
 SSM_F32_TOL = 1e-4
+
+PG_ARCH = "paligemma-3b"
+PG_PARAMS = 2_508_662_784
+# paligemma-3b's prefill shape of the flash kernel: the text prompt alone
+# (the reference prefills no image prefix), 8 q heads over 1 kv head (MQA:
+# GQA group 8), D 256
+PG_SHAPE = (SERVE_BATCH, 8, 1, SERVE_PROMPT, 256)
+PG_F32_LAYERS = 2          # full width, f32, batch 1
+PG_F32_STEPS = 8           # teacher-forced decode steps, each write clamped
+# training: cut from 4 to 2 sequences for the f32 logits over vocab 257216
+# (2 x 2048 x 257216 x 4 B = 4.2 GB a copy); 256 prefix embeddings each
+PG_TRAIN_BATCH = 2
+PG_TRAIN_STEPS = 2
+WH_ARCH = "whisper-small"
+WH_PARAMS = 263_280_384
+# Whisper's previous-text prompt limit: half its 448-token decoder context
+WH_PROMPT = 224
+WH_F32_STEPS = 8
+WH_TRAIN_SEQ = 448
+WH_TRAIN_STEPS = 2
+# whisper-small's decoder self-attention at the flash kernel's prefill (MHA,
+# D 64): the 224 rows padded to 256 by flash_attention_padded
+WH_SHAPE = (SERVE_BATCH, 12, 12, 256, 64)
 
 
 def log(*parts) -> None:
@@ -705,30 +772,37 @@ def serve_requests(spec, params, queue: list) -> tuple[list, float]:
     t0 = time.perf_counter()
     for i in range(0, len(queue), SERVE_BATCH):
         out.append(serve_batch(spec, params, np.stack(queue[i:i + SERVE_BATCH]),
-                               SERVE_GEN, SERVE_CACHE_LEN))
+                               SERVE_GEN, cache_len_for(len(queue[i]))))
     return out, time.perf_counter() - t0
 
 
-def decode_pos(spec, i: int) -> int:
-    """The position of decode step ``i`` after a SERVE_PROMPT prompt, as
-    ``serve_batch`` decodes: after the prompt and any meta tokens."""
-    return SERVE_PROMPT + spec.cfg.num_meta_tokens + i
+def decode_pos(spec, i: int, prompt_len: int = SERVE_PROMPT) -> int:
+    """The position of decode step ``i`` after a prompt of ``prompt_len``,
+    as ``serve_batch`` decodes (a vlm's run past its cache's end and
+    clamp)."""
+    return decode_start(spec.cfg, prompt_len) + i
+
+
+def prefill_input(spec, prompts: np.ndarray):
+    """What ``serve_batch`` prefills for ``prompts``, on the card."""
+    return prefill_batch(spec.cfg, torch.as_tensor(prompts, device="cuda"))
 
 
 def time_serve_steps(spec, params, prompts: np.ndarray,
                      gen: int = SERVE_GEN) -> tuple[float, float]:
     """Prefill ms and decode ms per step of one batch (host clock, each
     ending in a synchronise), after the serve run warmed everything."""
-    tokens = torch.as_tensor(prompts, device="cuda")
+    batch = prefill_input(spec, prompts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = spec.prefill(params, tokens, SERVE_CACHE_LEN)
+    logits, caches = spec.prefill(params, batch, cache_len_for(prompts.shape[1]))
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = logits.argmax(-1)[:, None]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i))
+        logits, caches = spec.decode_step(params, tok, caches,
+                                          decode_pos(spec, i, prompts.shape[1]))
         tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
     return prefill_ms, (time.perf_counter() - t0) * 1e3 / (gen - 1)
@@ -749,13 +823,13 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
 
     def prefill():
         state["logits"], state["caches"] = spec.prefill(
-            params, torch.as_tensor(prompts, device="cuda"), SERVE_CACHE_LEN)
+            params, prefill_input(spec, prompts), cache_len_for(prompts.shape[1]))
 
     def decode():
         for i in range(4):
             tok = state["logits"].argmax(-1)[:, None]
             state["logits"], state["caches"] = spec.decode_step(
-                params, tok, state["caches"], decode_pos(spec, i))
+                params, tok, state["caches"], decode_pos(spec, i, prompts.shape[1]))
 
     for label, fn in (("prefill", prefill), ("4 decode steps", decode)):
         torch.cuda.synchronize()
@@ -780,14 +854,20 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
             log(f"    {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{count:<5} {name[:70]}")
 
 
-def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray) -> list:
-    """Prefill logits, then each decode step's logits with ``forced`` tokens."""
-    logits, caches = spec.prefill(params, torch.as_tensor(prompts, device="cuda"),
-                                  SERVE_CACHE_LEN)
+def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray,
+                          frames: torch.Tensor | None = None) -> list:
+    """Prefill logits, then each decode step's logits with ``forced``
+    tokens at ``serve_batch``'s positions; an audio model encodes
+    ``frames`` (default: zeros, as ``serve_batch`` does)."""
+    batch = prefill_input(spec, prompts)
+    if frames is not None:
+        batch = dict(batch, frames=frames)
+    s = prompts.shape[1]
+    logits, caches = spec.prefill(params, batch, cache_len_for(s))
     out = [logits]
     for i in range(forced.shape[1]):
         tok = torch.as_tensor(forced[:, i:i + 1], device="cuda")
-        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i))
+        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i, s))
         out.append(logits)
     return out
 
@@ -799,23 +879,26 @@ def check_prefill_activations(spec, params, prompts: np.ndarray,
     against its plain version (2e-2); returns the largest |kernel - plain|."""
     layers = layers or (0, spec.cfg.num_layers - 1)
     with captured_attention(layers) as seen:
-        spec.prefill(params, torch.as_tensor(prompts, device="cuda"), SERVE_CACHE_LEN)
+        spec.prefill(params, prefill_input(spec, prompts), cache_len_for(prompts.shape[1]))
     check(sorted(seen) == list(layers), f"captured layers {sorted(seen)}, not {layers}")
-    worst = 0.0
-    for layer, e in sorted(seen.items()):
-        q, k, v, kw = e["q"], e["k"], e["v"], e["kw"]
-        got = flash_attention_padded(q, k, v, **kw)
-        want = flash_attention_torch(q, k, v, causal=True, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        check(bool(torch.isfinite(got).all())
-              and torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
-              f"layer {layer} prefill activations: kernel != plain version "
-              f"(max |d| {err:.3g}, tol 2e-2)")
-        log(f"  ok  layer {layer} bf16 prefill q/k/v {list(q.shape)}/{list(k.shape)} "
-            f"window {kw.get('window')}: max |kernel - plain| {err:.3g} (tol 2e-2, |q| max "
-            f"{float(q.float().abs().max()):.3g})")
-        worst = max(worst, err)
-    return worst
+    return max(check_fwd_activations(f"layer {layer} bf16 prefill", e["q"], e["k"], e["v"],
+                                     e["kw"])
+               for layer, e in sorted(seen.items()))
+
+
+def check_fwd_activations(label: str, q, k, v, kw: dict) -> float:
+    """The kernel, through the model's padded wrapper, on a layer's captured
+    q/k/v and keywords against its plain version (2e-2); returns the largest
+    |kernel - plain|."""
+    got = flash_attention_padded(q, k, v, **kw)
+    want = flash_attention_torch(q, k, v, causal=True, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+          f"{label} activations: kernel != plain version (max |d| {err:.3g}, tol 2e-2)")
+    log(f"  ok  {label} q/k/v {list(q.shape)}/{list(k.shape)} window {kw.get('window')}: "
+        f"max |kernel - plain| {err:.3g} (tol 2e-2, |q| max {float(q.float().abs().max()):.3g})")
+    return err
 
 
 def phase_serve() -> int:
@@ -1005,13 +1088,16 @@ def grads_of(fn, q, k, v, do):
     return torch.autograd.grad(out, leaves_, do)
 
 
-def training_activations() -> list:
-    """(label, q, k, v, d out, keywords) of layers 0 and 27 in one bf16
-    training step (loss and gradients) of phase 10's model and batch."""
-    cfg = get_config(TRAIN_ARCH)
+def training_activations(arch: str = TRAIN_ARCH, batch_size: int = TRAIN_BATCH,
+                         seq: int = TRAIN_SEQ) -> list:
+    """(label, q, k, v, d out, keywords) of the first and the last layer's
+    flash call in one bf16 training step (loss and gradients) of ``arch``
+    on a batch of ``batch_size`` x ``seq`` (default: phase 10's model and
+    batch, layers 0 and 27)."""
+    cfg = get_config(arch)
     spec = build_model(cfg)
     params = spec.init(0, "cuda")
-    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0, "cuda")
+    batch = SyntheticLM(cfg, batch_size, seq, seed=0).batch_at(0, "cuda")
     layers = (0, cfg.num_layers - 1)
     with captured_attention(layers) as seen:
         loss_and_grads(spec, params, batch)
@@ -1050,18 +1136,18 @@ def check_bwd_case(label: str, q, k, v, do, opts: dict) -> float:
         check(flash_attention.backward_launches == before + 1,
               f"flash bwd {label}: the padded path launched the backward "
               f"{flash_attention.backward_launches - before} times")
-        o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+        _, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
         lse_err = 0.0
         launches = 1
     else:
-        o, lse = flash_attention_lse(q, k, v, **kw)
-        want_o, want_lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+        _, lse = flash_attention_lse(q, k, v, **kw)
+        _, want_lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
         live = torch.isfinite(want_lse)
         check(torch.equal(torch.isfinite(lse), live),
               f"flash bwd {label}: lse is -inf on other rows than the plain one's")
         lse_err = float((lse[live] - want_lse[live]).abs().max()) if live.any() else 0.0
         check(lse_err <= 1e-3, f"flash bwd {label}: lse off by {lse_err:.3g}")
-        got = flash_attention_backward(q, k, v, o, lse, do, **kw)
+        got = flash_attention_backward(q, k, v, lse, do, **kw)
         check(flash_attention.backward_launches == before + 1,
               f"flash bwd {label}: the backward kernel did not run")
         launches = 1
@@ -1077,11 +1163,11 @@ def check_bwd_case(label: str, q, k, v, do, opts: dict) -> float:
     check(on == launches * on_tc, f"flash bwd {label}: {on} tensor-core backward launches "
           f"of {launches} for {dtype} D {d}")
     if on_tc and not padded:
-        again = flash_attention_backward(q, k, v, o, lse, do, **kw)
+        again = flash_attention_backward(q, k, v, lse, do, **kw)
         check(all(torch.equal(x, y) for x, y in zip(again, got)),
               f"flash bwd {label}: two launches of the tensor-core backward differ")
     torch.cuda.synchronize()
-    want = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
+    want = flash_attention_backward_torch(q, k, v, lse, do, **kw)
     auto = grads_of(plain_fwd, q, k, v, do)
     errs, auto_errs = [], []
     for name, g, w, a in zip("qkv", got, want, auto):
@@ -1116,10 +1202,10 @@ def check_fresh_thread() -> None:
     q, k, v = qkv(HY_CASE, torch.bfloat16, seed=4)
     do = qkv(HY_CASE, torch.bfloat16, seed=5)[0]
     kw = dict(sm_scale=HY_CASE[-1] ** -0.5, window=HY_WINDOW)
-    o, lse = flash_attention_lse(q, k, v, **kw)
+    _, lse = flash_attention_lse(q, k, v, **kw)
     torch.cuda.synchronize()
     calls = {"forward": lambda: (flash_attention(q, k, v, **kw),),
-             "backward": lambda: flash_attention_backward(q, k, v, o, lse, do, **kw)}
+             "backward": lambda: flash_attention_backward(q, k, v, lse, do, **kw)}
     for name, fn in calls.items():
         out = {}
 
@@ -1359,11 +1445,11 @@ def phase_train() -> int:
 def flash_bwd_bound(shape, itemsize: int) -> tuple[float, str]:
     """Least time for the card at ``shape`` (causal): the five products of
     the backward (2.5x the forward's FLOPs) over the bf16 tensor-core peak,
-    or q, k, v, o, d out and lse read and dq, dk, dv written once over HBM
+    or q, k, v, d out and lse read and dq, dk, dv written once over HBM
     bandwidth."""
     b, hq, hkv, s_len, d = shape
     flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
-    nbytes = (4 * b * hq + 4 * b * hkv) * s_len * d * itemsize + b * hq * s_len * 4
+    nbytes = (3 * b * hq + 4 * b * hkv) * s_len * d * itemsize + b * hq * s_len * 4
     by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
@@ -1377,13 +1463,13 @@ def phase_flash_bwd_timing() -> dict:
     q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, seed=2)
     do = qkv(TRAIN_SHAPE, torch.bfloat16, seed=3)[0]
     kw = dict(sm_scale=TRAIN_SHAPE[-1] ** -0.5)
-    o, lse = flash_attention_lse(q, k, v, **kw)
+    _, lse = flash_attention_lse(q, k, v, **kw)
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     tc_before = flash_attention.tensor_core_backward_launches
     kernel_ms, library_ms = [], []
     for _ in range(2):
-        kernel_ms.append(time_ms(lambda: flash_attention_backward(q, k, v, o, lse, do, **kw),
+        kernel_ms.append(time_ms(lambda: flash_attention_backward(q, k, v, lse, do, **kw),
                                  TIMED_RUNS, BWD_INNER))
         library_ms.append(time_ms(lambda: torch.autograd.grad(
             sdpa_out, (ql, kl, vl), do, retain_graph=True), TIMED_RUNS, BWD_INNER))
@@ -1391,7 +1477,7 @@ def phase_flash_bwd_timing() -> dict:
           == 2 * (1 + TIMED_RUNS * BWD_INNER), "the timed backward is not the tensor-core one")
     ms = statistics.median(kernel_ms)
     lib_ms = statistics.median(library_ms)
-    plain_ms = time_ms(lambda: flash_attention_backward_torch(q, k, v, o, lse, do, **kw), 3)
+    plain_ms = time_ms(lambda: flash_attention_backward_torch(q, k, v, lse, do, **kw), 3)
     bound_ms, bound_by = flash_bwd_bound(TRAIN_SHAPE, q.element_size())
     b, hq, hkv, s_len, d = TRAIN_SHAPE
     flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
@@ -1401,10 +1487,10 @@ def phase_flash_bwd_timing() -> dict:
         f"(medians of {TIMED_RUNS} x {BWD_INNER} back to back); plain {plain_ms:.3f} ms; "
         f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3g} FLOP), {bound_ms / ms:.1%} of "
         f"bound, {flops / ms / 1e9:.1f} TFLOP/s of the bound's FLOP, "
-        f"{1.4 * flops / ms / 1e9:.1f} of the 7 products done")
+        f"{1.8 * flops / ms / 1e9:.1f} of the 9 products done")
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-    o32, lse32 = flash_attention_lse(q32, k32, v32, **kw)
-    f32_ms = time_ms(lambda: flash_attention_backward(q32, k32, v32, o32, lse32, do32, **kw),
+    _, lse32 = flash_attention_lse(q32, k32, v32, **kw)
+    f32_ms = time_ms(lambda: flash_attention_backward(q32, k32, v32, lse32, do32, **kw),
                      3)
     log(f"  the same shape in f32, CUDA-core backward: {f32_ms:.4f} ms (median of 3; its "
         f"FLOP over the f32 CUDA-core peak {flops / F32_OPS_PER_S * 1e3:.4f} ms)")
@@ -2189,19 +2275,20 @@ def phase_deepseek() -> tuple[int, int, float]:
 
 # ----------------------------------------------------------------- phase 15
 
-def family_serve(cfg, seed: int) -> dict:
-    """Serve SERVE_REQUESTS prompts in batches through ``serve_batch``,
-    time one batch's prefill and decode, profile them, and check that two
-    prefills of one batch give the same logits. Returns the model, its
-    parameter count, the first batch's prompts, and the flash launches of
-    the serving run and of one prefill (with their tensor-core share)."""
+def family_serve(cfg, seed: int, prompt: int = SERVE_PROMPT) -> dict:
+    """Serve SERVE_REQUESTS prompts of ``prompt`` tokens in batches through
+    ``serve_batch``, time one batch's prefill and decode, profile them, and
+    check that two prefills of one batch give the same logits. Returns the
+    model, its parameter count, the first batch's prompts, and the flash
+    launches of the serving run and of one prefill (with their tensor-core
+    share)."""
     spec = build_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = spec.init(0, "cuda")
     n_params = spec.param_count(params)
     rng = np.random.default_rng(seed)
-    queue = [rng.integers(1, cfg.vocab, size=SERVE_PROMPT) for _ in range(SERVE_REQUESTS)]
+    queue = [rng.integers(1, cfg.vocab, size=prompt) for _ in range(SERVE_REQUESTS)]
     prompts = np.stack(queue[:SERVE_BATCH])
     zero_flash_counts()
     batches, serve_s = serve_requests(spec, params, queue)
@@ -2215,19 +2302,19 @@ def family_serve(cfg, seed: int) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {cfg.name}: {n_params / 1e6:.3f} M params ({n_params * 2 / 1e9:.3f} GB bf16), "
         f"{SERVE_REQUESTS} requests in {len(batches)} batches of {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_GEN} generated tokens each; flash launches {launches}, "
+        f"{prompt}, {SERVE_GEN} generated tokens each; flash launches {launches}, "
         f"{tc} on the tensor-core forward")
     log(f"  served {n_tokens} tokens in {serve_s:.3f} s ({n_tokens / serve_s:.1f} tok/s); "
-        f"prefill {prefill_ms:.2f} ms per batch of {SERVE_BATCH} x {SERVE_PROMPT}, decode "
+        f"prefill {prefill_ms:.2f} ms per batch of {SERVE_BATCH} x {prompt}, decode "
         f"{decode_ms:.2f} ms per step; peak device memory {peak_gib:.2f} GiB")
     t0 = time.perf_counter()
     profile_serve(spec, params, prompts)
     log(f"  (the two profiles took {time.perf_counter() - t0:.1f} s with their processing)")
-    tokens = torch.as_tensor(prompts, device="cuda")
+    batch = prefill_input(spec, prompts)
     zero_flash_counts()
-    first = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+    first = spec.prefill(params, batch, cache_len_for(prompt))[0]
     one, one_tc = flash_attention.launches, flash_attention.tensor_core_launches
-    second = spec.prefill(params, tokens, SERVE_CACHE_LEN)[0]
+    second = spec.prefill(params, batch, cache_len_for(prompt))[0]
     check(torch.equal(first, second), f"{cfg.name}: two prefills of one batch gave "
           "different logits")
     log(f"  two prefills of one batch: identical logits; one prefill launched flash "
@@ -2327,15 +2414,16 @@ def family_f32(cfg, seed: int) -> None:
         f"that; a lost or misplaced state moves them by O(1))")
 
 
-def family_train(cfg, steps: int) -> tuple:
-    """``steps`` of 4 x 2048 through make_state / make_step (AdamW at the
-    training CLI's defaults, bf16, remat), then, for hymba, one more step
-    under torch.profiler (an xLSTM step is ~1,000,000 launches); returns
-    the flash launch counts of the ``steps`` (forward, tensor-core,
-    backward, tensor-core backward)."""
+def family_train(cfg, steps: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> tuple:
+    """``steps`` of ``batch`` x ``seq`` (a vlm's batch with its prefix
+    embeddings, an audio model's with its frames) through make_state /
+    make_step (AdamW at the training CLI's defaults, bf16, remat), then,
+    for hymba, one more step under torch.profiler (an xLSTM step is
+    ~1,000,000 launches); returns the flash launch counts of the ``steps``
+    (forward, tensor-core, backward, tensor-core backward)."""
     spec = build_model(cfg)
     opt_cfg = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=max(10, steps // 20))
-    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    data = SyntheticLM(cfg, batch, seq, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = make_state(spec, opt_cfg, 0, compression=False, device="cuda")
@@ -2343,20 +2431,21 @@ def family_train(cfg, steps: int) -> tuple:
     zero_flash_counts()
     losses, times = [], []
     for i in range(steps):
-        batch = data.batch_at(i, "cuda")
+        inputs = data.batch_at(i, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = step(state, inputs)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+    del inputs
     counts = flash_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(np.isfinite(losses)), f"{cfg.name} training: non-finite losses {losses}")
     ms = statistics.median(times[1:]) * 1e3
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     fwd, tc, bwd, tc_bwd = counts
-    log(f"  {cfg.name} training: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat, "
+    log(f"  {cfg.name} training: {steps} steps of {batch} x {seq}, bf16, remat, "
         f"AdamW; losses {', '.join(f'{x:.4f}' for x in losses)} (ln vocab "
         f"{np.log(cfg.vocab):.4f}); flash launches forward {fwd}, tensor-core {tc}, backward "
         f"{bwd}, tensor-core backward {tc_bwd}")
@@ -2425,6 +2514,131 @@ def phase_ssm_hybrid() -> tuple[int, int, float]:
         f"{serve_launches}, training {fwd}), backward {bwd}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return serve_launches + fwd, bwd, hy_err
+
+
+# ----------------------------------------------------------------- phase 16
+
+def f32_parity(cfg, seed: int, prompt: int, steps: int, frames: bool = False) -> float:
+    """f32 at batch 1: prefill and ``steps`` teacher-forced decode steps
+    (at ``serve_batch``'s positions) through the kernel path against the
+    plain-attention path, within SERVE_F32_TOL; the kernel path's prefill
+    launches flash once per layer, on the CUDA-core kernel. ``frames``:
+    random frame embeddings from the seed for an audio model (else what
+    ``serve_batch`` gives). Returns the largest |d|."""
+    spec = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    params = spec.init(0, "cuda")
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab, size=(1, prompt))
+    forced = rng.integers(1, cfg.vocab, size=(1, steps))
+    f = (torch.as_tensor(rng.standard_normal((1, cfg.frontend_len, cfg.d_model))
+                         .astype(np.float32) * 0.1, device="cuda") if frames else None)
+    zero_flash_counts()
+    got = teacher_forced_logits(spec, params, prompts, forced, f)
+    check(flash_attention.launches == cfg.num_layers
+          and flash_attention.tensor_core_launches == 0,
+          f"{cfg.name} f32: {flash_attention.launches} flash launches "
+          f"({flash_attention.tensor_core_launches} tensor-core), not {cfg.num_layers} "
+          "on CUDA cores")
+    with plain_attention():
+        want = teacher_forced_logits(spec, params, prompts, forced, f)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    for i, (a, b) in enumerate(zip(got, want)):
+        what = "prefill" if i == 0 else f"decode step {i} (position {decode_pos(spec, i - 1, prompt)})"
+        check(a.shape == (1, cfg.vocab) and bool(torch.isfinite(a).all())
+              and torch.allclose(a, b, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
+              f"{cfg.name} f32 {what}: kernel path != plain-attention path "
+              f"(max |d| {errs[i]:.3g}, tol {SERVE_F32_TOL})")
+    log(f"  f32, {cfg.num_layers} layers, batch 1 x {prompt}: prefill logits max |d| "
+        f"{errs[0]:.3g}, {steps} teacher-forced decode steps (positions "
+        f"{decode_pos(spec, 0, prompt)}-{decode_pos(spec, steps - 1, prompt)}, cache "
+        f"{cache_len_for(prompt)}) max |d| {max(errs[1:]):.3g}, kernel path vs plain "
+        f"attention (tol {SERVE_F32_TOL}, logits max |x| {float(got[0].abs().max()):.3g})")
+    return max(errs)
+
+
+def phase_vlm_audio() -> tuple[int, int, float, float]:
+    """The vision-language and audio families (see the module docstring,
+    item 16). Returns the flash forward and backward launches of the
+    phase's serving and training runs, and the largest |kernel - plain| of
+    the forward (on the models' prefill and whisper's training activations)
+    and of the backward (on whisper's training activations)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(PG_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab, cfg.mlp_kind, cfg.tie_embeddings, cfg.embed_scale,
+           cfg.prefix_lm, cfg.frontend, cfg.frontend_len, cfg.dtype, cfg.remat)
+          == (18, 2048, 8, 1, 256, 16384, 257216, "geglu", True, True, True, "vision", 256,
+              torch.bfloat16, True), f"{PG_ARCH} is not at full width and depth")
+    run = family_serve(cfg, seed=21)
+    spec = run["spec"]
+    check(run["n_params"] == PG_PARAMS, f"{PG_ARCH}: {run['n_params']} params")
+    check(run["launches"] == cfg.num_layers * run["batches"] and run["tc"] == run["launches"]
+          and run["one"] == run["one_tc"] == cfg.num_layers,
+          f"{PG_ARCH} serving: flash launches {run['launches']} ({run['tc']} tensor-core), "
+          f"one prefill {run['one']} ({run['one_tc']}); want {cfg.num_layers} a prefill, "
+          "all tensor-core")
+    first = decode_pos(spec, 0)
+    check(first >= SERVE_CACHE_LEN - 1, f"{PG_ARCH}: decode from position {first} does not "
+          f"run past the cache of {SERVE_CACHE_LEN}")
+    log(f"  decode positions {first}-{decode_pos(spec, SERVE_GEN - 2)} in a cache of "
+        f"{SERVE_CACHE_LEN}: every write clamped into slot {SERVE_CACHE_LEN - 1}, as the "
+        "reference's dynamic_update_slice does")
+    pg_err = check_prefill_activations(spec, run["params"], run["prompts"],
+                                       (0, cfg.num_layers - 1))
+    serve_launches = run["launches"]
+    del run, spec
+    free_device(f"{PG_ARCH} serving")
+    phase_flash_timing(PG_SHAPE, f"{PG_ARCH} prefill shape", f32=False)
+    f32_parity(dataclasses.replace(cfg, num_layers=PG_F32_LAYERS), 22, SERVE_PROMPT,
+               PG_F32_STEPS)
+    free_device(f"{PG_ARCH} f32 check")
+    counts = family_train(cfg, PG_TRAIN_STEPS, batch=PG_TRAIN_BATCH)
+    check(counts == (0, 0, 0, 0), f"{PG_ARCH} training (prefix-LM) launched flash "
+          f"attention: {counts}")
+    free_device(f"{PG_ARCH} training")
+
+    cfg = get_config(WH_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab, cfg.mlp_kind, cfg.use_rope, cfg.frontend, cfg.frontend_len,
+           cfg.dtype, cfg.remat)
+          == (12, 768, 12, 12, 64, 3072, 51865, "gelu", False, "audio", 1500,
+              torch.bfloat16, True), f"{WH_ARCH} is not at full width and depth")
+    run = family_serve(cfg, seed=23, prompt=WH_PROMPT)
+    check(run["n_params"] == WH_PARAMS, f"{WH_ARCH}: {run['n_params']} params")
+    check(run["launches"] == cfg.num_layers * run["batches"] and run["tc"] == run["launches"]
+          and run["one"] == run["one_tc"] == cfg.num_layers,
+          f"{WH_ARCH} serving: flash launches {run['launches']} ({run['tc']} tensor-core), "
+          f"one prefill {run['one']} ({run['one_tc']}); want {cfg.num_layers} a prefill "
+          "(the decoder's self-attention), all tensor-core")
+    wh_err = check_prefill_activations(run["spec"], run["params"], run["prompts"],
+                                       (0, cfg.num_layers - 1))
+    serve_launches += run["launches"]
+    del run
+    free_device(f"{WH_ARCH} serving")
+    phase_flash_timing(WH_SHAPE, f"{WH_ARCH} decoder prefill shape ({WH_PROMPT} padded)",
+                       f32=False)
+    f32_parity(cfg, 24, WH_PROMPT, WH_F32_STEPS, frames=True)
+    free_device(f"{WH_ARCH} f32 check")
+    fwd, tc, bwd, tc_bwd = family_train(cfg, WH_TRAIN_STEPS, seq=WH_TRAIN_SEQ)
+    # remat: each decoder layer's forward runs twice a step (the pass and
+    # the recompute); the encoder's bidirectional attention stays off flash
+    want = (2 * cfg.num_layers * WH_TRAIN_STEPS, cfg.num_layers * WH_TRAIN_STEPS)
+    check((fwd, bwd) == want and tc == fwd and tc_bwd == bwd,
+          f"{WH_ARCH} training: flash forward {fwd} ({tc} tensor-core), backward {bwd} "
+          f"({tc_bwd} tensor-core); want {want[0]} and {want[1]}, all tensor-core")
+    free_device(f"{WH_ARCH} training")
+    # the kernels at the training step's own shape (448 rows padded to 512):
+    # decoder layers 0 and 11's q, k, v and d out, through the padded path
+    wh_bwd_err = 0.0
+    for label, q, k, v, do, kw in training_activations(WH_ARCH, TRAIN_BATCH, WH_TRAIN_SEQ):
+        wh_err = max(wh_err, check_fwd_activations(f"{WH_ARCH} {label}", q, k, v, kw))
+        wh_bwd_err = max(wh_bwd_err, check_bwd_case(f"{WH_ARCH} {label}", q, k, v, do,
+                                                     dict(kw, padded=True)))
+    free_device(f"{WH_ARCH} training activations")
+    log(f"  phase 16 flash launches: forward {serve_launches + fwd} (serving "
+        f"{serve_launches}, training {fwd}), backward {bwd}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return serve_launches + fwd, bwd, max(pg_err, wh_err), wh_bwd_err
 
 
 def main() -> int:
@@ -2520,6 +2734,12 @@ def main() -> int:
         f"{XL_TRAIN_STEPS} training steps")
     hy_fwd, hy_bwd, hy_err = phase_ssm_hybrid()
 
+    log(f"[16] the vision-language and audio families: {PG_ARCH} and {WH_ARCH} at full "
+        f"width and depth served ({SERVE_REQUESTS} requests, batch {SERVE_BATCH}, prompts "
+        f"{SERVE_PROMPT} and {WH_PROMPT}, {SERVE_GEN} tokens), the flash kernel at their "
+        f"prefill shapes, f32 checks, {PG_TRAIN_STEPS} and {WH_TRAIN_STEPS} training steps")
+    va_fwd, va_bwd, va_err, va_bwd_err = phase_vlm_audio()
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
@@ -2537,8 +2757,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": flash_launches + ds_fwd + hy_fwd,
-        "max_abs_err": max(flash_err, ds_err, hy_err),
+        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd,
+        "max_abs_err": max(flash_err, ds_err, hy_err, va_err),
         "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"],
@@ -2549,8 +2769,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": bwd_launches + ds_bwd + hy_bwd,
-        "max_abs_err": bwd_err,
+        "launches": bwd_launches + ds_bwd + hy_bwd + va_bwd,
+        "max_abs_err": max(bwd_err, va_bwd_err),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],

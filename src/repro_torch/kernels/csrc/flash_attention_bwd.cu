@@ -10,27 +10,39 @@
 //   s_ij = (q_i . k_j) * scale,  c_ij = cap * tanh(s_ij / cap) (or s_ij)
 //   P_ij = exp(c_ij - lse_i) where unmasked, else 0  (lse from the forward;
 //          a fully masked row has lse = -inf and gives P = 0)
-//   D_i  = sum_d dO_id O_id                          (O in the input type)
 //   dV_j = sum_i P_ij dO_i,   dP_ij = dO_i . v_j
+//   D_i  = sum_j P_ij dP_ij                          (= dO_i . O_i)
 //   dS_ij = P_ij (dP_ij - D_i) * (1 - (c_ij / cap)^2 with a softcap)
 //   dQ_i = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i
 //
 // with the forward's masks (causal: j <= i; window: i - j < window) and GQA
 // (kv head = h / group). dK and dV sum over the q heads of their group.
 //
+// D is summed from the P and dP that the backward itself recomputes, not
+// taken as dO_i . O_i from the forward's output as FlashAttention-2 does.
+// Without a softcap sum_j dS_ij = 0, so a component that every key shares
+// leaves the exact dQ; an error e in D breaks that sum and adds
+// -e * scale * sum_j P_ij k_j to dQ_i, the keys' shared component times e.
+// The output is rounded to 16 bits, and the tensor-core forward rounds P
+// before P V, so dO . O errs by ~2^-9 |dO_i| |O_i| against the backward's
+// P: on whisper-small's last decoder layer in training, whose keys share a
+// mean 13 times their spread, that put dQ 22 % of its max |dQ| off (0.3 %
+// with D from the recomputed P). The price is a first sweep of the dQ
+// kernels over their kv tiles for S and dP alone; they write D for dK, dV.
+//
 // What bounds it on an H100: five products of the forward's size, 2.5x its
 // FLOPs (1.72e11 at B 4, Hq 16, Hkv 8, S 2048, D 128, causal) against
-// ~240 MB of inputs and outputs in bf16, so operations: the products belong
+// ~170 MB of inputs and outputs in bf16, so operations: the products belong
 // on the bf16 tensor cores (989 TFLOP/s dense).
 //
 // 1. Tensor-core kernels: bf16 and f16 at D 64 and 128 (flash_attention_
-//    bwd_uses_tensor_cores). Two passes, deterministic, no atomics; the
-//    design does 7 products of 2 D FLOP a (q, k) pair where the bound
-//    counts 5, the price of an exact dQ without an f32 scratch.
-//    * flash_bwd_prep: one warp a row of [B * Hq, S_pad] (S rounded up to
-//      64): D_i, and lse * log2 e with +inf for a fully masked row and for
-//      rows past S, so that P = exp2(c log2 e - lse2) is 0 there with no
-//      test. Both go to a padded workspace that 256-byte bulk copies read.
+//    bwd_uses_tensor_cores). Deterministic, no atomics; the design does 9
+//    products of 2 D FLOP a (q, k) pair where the bound counts 5: 2 for
+//    an exact dQ without an f32 scratch, 2 for D (above).
+//    * flash_bwd_prep: one thread a row of [B * Hq, S_pad] (S rounded up to
+//      64): lse * log2 e with +inf for a fully masked row and for rows past
+//      S, so that P = exp2(c log2 e - lse2) is 0 there with no test, into a
+//      padded workspace that 256-byte bulk copies read.
 //    * flash_bwd_dkdv_tc: one block per (batch * kv head, 128 kv rows),
 //      kv blocks heaviest first. A producer warpgroup (setmaxnreg 24) whose
 //      first thread issues every load, and two consumer warpgroups of 64 kv
@@ -51,13 +63,18 @@
 //      2 x (16 + 16) KB, the rows 2 KB.
 //    * flash_bwd_dq_tc: one block per (batch * q head, 128 query rows),
 //      shaped like flash_fwd_tc: Q and dO arrive once, K and V tiles of 64
-//      keys stream through the ring; per tile S = Q K^T and dP = dO V^T
-//      (wgmma_ss), P and dS in registers (lse2 and D by row), dQ += dS K
-//      (wgmma_rs, K MN-major as the forward reads V).
+//      keys stream through the ring twice. First sweep, per tile: S = Q K^T
+//      and dP = dO V^T (wgmma_ss), P in registers, D_i += P dP by row; then
+//      D goes to the padded workspace (0 past S) for flash_bwd_dkdv_tc,
+//      launched after. Second sweep, per tile: S and dP again, P and dS in
+//      registers (lse2 and D by row), dQ += dS K (wgmma_rs, K MN-major as
+//      the forward reads V).
 //    * Numerics: P^T and dS^T (dS) are rounded to the input type before
-//      their products, the one departure from the plain version, which
-//      keeps them in f32; every sum stays f32 (tests/test_torch_flash_grad.py
-//      holds a rounded copy of the algorithm against the JAX reference).
+//      their products, where the plain version keeps them in f32; without a
+//      softcap dQ's epilogue then takes out the rounded dS's row sums times
+//      the row's own key (dq_consume says why). Every sum stays f32
+//      (tests/test_torch_flash_grad.py holds a rounded copy of the
+//      algorithm against the JAX reference).
 //    * Per tile, the two products that read a ring slot are issued as one
 //      group and waited for before the elementwise work; the other consumer
 //      warpgroup's products fill the tensor cores meanwhile.
@@ -66,7 +83,12 @@
 //    224 and 256 (at D 192 and 256 the f32 dK and dV accumulators of 64
 //    rows would need 192-256 registers a thread beside S and dP). Both
 //    products of a pair run as f32 FMAs, with FlashAttention-2's split:
-//    a. flash_bwd_delta: D_i, one warp per row.
+//    a. flash_bwd_dq: one block per (batch * q head, 64 query rows),
+//       heaviest first, looping twice over the 32-key tiles the forward
+//       would visit (causal upper bound, window lower bound): each warp owns
+//       8 query rows, each lane one key. The first loop sums D_i = sum_j
+//       P_ij dP_ij by row and writes it for flash_bwd_dkdv, launched after;
+//       the second accumulates dQ += dS K in registers.
 //    b. flash_bwd_dkdv: one block per (batch * kv head, 64 kv rows). K and V
 //       of its rows stay in shared memory in f32; the block loops over the
 //       q heads of the group and, for each, over the 32-row query tiles the
@@ -75,10 +97,6 @@
 //       each lane one query of the tile: P^T and dS^T go through a per-warp
 //       strip of shared memory into dV += P^T dO and dK += dS^T Q,
 //       accumulated in registers. The group's sum stays inside the block.
-//    c. flash_bwd_dq: one block per (batch * q head, 64 query rows),
-//       heaviest first, looping over the 32-key tiles the forward would
-//       visit (causal upper bound, window lower bound): each warp owns 8
-//       query rows, each lane one key; dQ += dS K in registers.
 //    Every element is masked (and rows past S zeroed) in every tile, so the
 //    skipped ranges only save work.
 //
@@ -175,17 +193,24 @@ struct Opts {
   float cap;
 };
 
-// P and dS of one score: c is the (capped) scaled score, lse the query
-// row's log-sum-exp, dp = dO_i . v_j, delta = D_i.
-__device__ __forceinline__ void prob_and_grad(float s, float dp, float lse, float delta,
-                                              int qp, int kp, const Opts& o,
-                                              float* p_out, float* ds_out) {
+// P of one score s = q_i . k_j (query qp, key kp) and, in *c, its capped
+// scaled score; lse is the query row's log-sum-exp.
+__device__ __forceinline__ float prob(float s, float lse, int qp, int kp, const Opts& o,
+                                      float* c) {
   const float x = s * o.scale;
-  const float c = o.has_cap ? o.cap * tanhf(x / o.cap) : x;
+  *c = o.has_cap ? o.cap * tanhf(x / o.cap) : x;
   bool ok = qp < o.S && kp < o.S && lse > -INFINITY;
   if (o.causal) ok = ok && kp <= qp;
   if (o.has_window) ok = ok && qp - kp < o.window;
-  const float p = ok ? expf(c - lse) : 0.f;
+  return ok ? expf(*c - lse) : 0.f;
+}
+
+// P and dS of one score: dp = dO_i . v_j, delta = D_i.
+__device__ __forceinline__ void prob_and_grad(float s, float dp, float lse, float delta,
+                                              int qp, int kp, const Opts& o,
+                                              float* p_out, float* ds_out) {
+  float c;
+  const float p = prob(s, lse, qp, kp, o, &c);
   float ds = p * (dp - delta);
   if (o.has_cap) {
     const float t = c / o.cap;
@@ -229,26 +254,6 @@ constexpr size_t smem_bytes() {
          + sizeof(T) * 2 * STREAM * DP      // the streamed tile's two, input type
          + sizeof(float) * 2 * OWN * STREAM // P and dS strips
          + sizeof(float) * 2 * STREAM;      // the streamed rows' lse and D
-}
-
-// 1. D_i = sum_d dO_id O_id, one warp per row of [rows, D]
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, int rows) {
-  constexpr int D = NC * 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;                 // whole warps leave together
-  const T* orow = o + static_cast<size_t>(row) * D;
-  const T* drow = dout + static_cast<size_t>(row) * D;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    acc = fmaf(to_f32(orow[lane + 32 * c]), to_f32(drow[lane + 32 * c]), acc);
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
 }
 
 // 2. dK, dV of 64 kv rows of one (batch, kv head), over the group's q heads
@@ -383,12 +388,12 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// 3. dQ of 64 query rows of one (batch, q head)
+// 3. D and dQ of 64 query rows of one (batch, q head)
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ lse, float* __restrict__ delta,
              T* __restrict__ dq, Opts o) {
   constexpr int D = NC * 32;
   constexpr int DP = D + PAD;
@@ -418,7 +423,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int qp = q0 + r0 + i;
     l_q[i] = qp < S ? lse[static_cast<size_t>(bh) * S + qp] : -INFINITY;
-    d_q[i] = qp < S ? delta[static_cast<size_t>(bh) * S + qp] : 0.f;
+    d_q[i] = 0.f;
   }
 
   // key tiles [t_lo, t_hi) that hold a key some row may see (the forward's)
@@ -435,8 +440,23 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * STREAM;
+  // the first sweep sums D_i = sum_j P_ij dP_ij by row (each lane its keys,
+  // then the warp), which goes to `delta` for flash_bwd_dkdv; the second
+  // accumulates dQ
+  auto finish_d = [&]() {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      d_q[i] = warp_sum(d_q[i]);
+      const int qp = q0 + r0 + i;
+      if (lane == 0 && qp < S) delta[static_cast<size_t>(bh) * S + qp] = d_q[i];
+    }
+  };
+  const int n = max(t_hi - t_lo, 0);
+  if (n == 0) finish_d();
+  for (int t = 0; t < 2 * n; ++t) {
+    const bool sweep_d = t < n;
+    const int k0 = (t_lo + t % n) * STREAM;
+    if (t == n) finish_d();
     __syncthreads();   // Q/dO in place; the last tile's reads are done
     load_tile<T, D>(sK, kh, k0, STREAM, S);
     load_tile<T, D>(sV, vh, k0, STREAM, S);
@@ -459,6 +479,14 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     const int kp = k0 + lane;
+    if (sweep_d) {
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        float c;
+        d_q[i] = fmaf(prob(s[i], l_q[i], q0 + r0 + i, kp, o, &c), dp[i], d_q[i]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       float p;
@@ -500,10 +528,9 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NC>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* out,
-                         const float* lse, const void* dout, void* dq, void* dk,
-                         void* dv, float* delta, int B, int Hkv, const Opts& o,
-                         cudaStream_t stream) {
+cudaError_t launch_typed(const void* q, const void* k, const void* v, const float* lse,
+                         const void* dout, void* dq, void* dk, void* dv, float* delta,
+                         int B, int Hkv, const Opts& o, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, NC>();
   static_assert(smem <= 227 * 1024, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<T, NC>,
@@ -513,12 +540,6 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   err = cudaFuncSetAttribute(flash_bwd_dq<T, NC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-
-  const int rows = B * o.Hq * o.S;
-  flash_bwd_delta<T, NC><<<(rows + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows);
-  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int tiles = (o.S + OWN - 1) / OWN;
@@ -537,13 +558,11 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* out, const float* lse, const void* dout, void* dq,
-                     void* dk, void* dv, float* delta, int B, int Hkv, const Opts& o,
-                     cudaStream_t stream) {
-#define FLASH_BWD_CASE(NC)                                                    \
-  case NC * 32:                                                               \
-    return launch_typed<T, NC>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, \
-                               Hkv, o, stream);
+                     const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                     float* delta, int B, int Hkv, const Opts& o, cudaStream_t stream) {
+#define FLASH_BWD_CASE(NC)                                                               \
+  case NC * 32:                                                                          \
+    return launch_typed<T, NC>(q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o, stream);
   switch (D) {
     FLASH_BWD_CASE(1) FLASH_BWD_CASE(2) FLASH_BWD_CASE(3) FLASH_BWD_CASE(4)
     FLASH_BWD_CASE(5) FLASH_BWD_CASE(6) FLASH_BWD_CASE(7) FLASH_BWD_CASE(8)
@@ -574,7 +593,7 @@ constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 2;                       // slots of the ring
-constexpr int PREP_WARPS = 8;
+constexpr int PREP_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // S rounded up to whole streamed tiles: the row length of the workspace
@@ -603,36 +622,28 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
   const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+// pack2's inverse
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t w);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+  return make_float2(bf16_lo(w), bf16_hi(w));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+  return make_float2(f16_lo(w), f16_hi(w));
+}
 
-// lse2 and D of every row of [B * Hq, S_pad], one warp a row.
-template <typename T, int NC>
-__global__ void __launch_bounds__(PREP_WARPS * 32)
-flash_bwd_prep(const T* __restrict__ o, const T* __restrict__ dout,
-               const float* __restrict__ lse, float* __restrict__ lse2,
-               float* __restrict__ delta, int S, int rows) {
-  constexpr int D = NC * 32;
-  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;                 // whole warps leave together
+// lse2 of every row of [B * Hq, S_pad], one thread a row.
+__global__ void __launch_bounds__(PREP_THREADS)
+flash_bwd_prep(const float* __restrict__ lse, float* __restrict__ lse2, int S, int rows) {
+  const int row = blockIdx.x * PREP_THREADS + threadIdx.x;
+  if (row >= rows) return;
   const int S_pad = padded(S);
   const int qp = row % S_pad;
-  float acc = 0.f, l2 = INFINITY;
+  float l2 = INFINITY;
   if (qp < S) {
-    const size_t src = static_cast<size_t>(row / S_pad) * S + qp;
-    const T* orow = o + src * D;
-    const T* drow = dout + src * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      acc = fmaf(to_f32(orow[lane + 32 * c]), to_f32(drow[lane + 32 * c]), acc);
-    }
-    acc = warp_sum(acc);
-    const float l = lse[src];
+    const float l = lse[static_cast<size_t>(row / S_pad) * S + qp];
     l2 = l > -INFINITY ? l * LOG2E : INFINITY;
   }
-  if (lane == 0) {
-    delta[row] = acc;
-    lse2[row] = l2;
-  }
+  lse2[row] = l2;
 }
 
 // P and dS of one accumulator element: s the raw dot product, dp the other
@@ -922,15 +933,24 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
   }
 }
 
-// One consumer warpgroup of flash_bwd_dq_tc: its 64 query rows' dQ over the
-// ring's kv tiles, then the epilogue (the accumulator layout above; rows
+// One consumer warpgroup of flash_bwd_dq_tc: its 64 query rows' D over the
+// ring's first sweep of the kv tiles, written to `delta`, then their dQ over
+// the second sweep, then the epilogue (the accumulator layout above; rows
 // are queries and columns the tile's keys).
+//
+// dS is rounded to 16 bits before dQ += dS K, so sum_j dS_ij, 0 without a
+// softcap, is off by the rounding errors' sum, which dQ_i takes times the
+// keys' shared component (the note on D at the top): ~2e-2 of max |dQ|
+// at a shared mean 16 times the spread, 5e-2 at 32. Without a softcap the
+// epilogue removes it: dQ_i = scale sum_j dS_ij (k_j - k_i), the row's own
+// key k_i standing in for the shared part, with sum_j dS_ij summed from the
+// rounded dS that the product took.
 template <typename T, int D>
 __device__ __forceinline__ void dq_consume(
     unsigned char* sQ, unsigned char* sDO, unsigned char* sRing, uint64_t* q_full,
     uint64_t* full, uint64_t* empty, const float* __restrict__ lse2,
-    const float* __restrict__ delta, T* __restrict__ dq, int bh, int q0, int kv_lo,
-    int n_tiles, int warp, const Opts& o) {
+    float* __restrict__ delta, const T* __restrict__ kh, T* __restrict__ dq, int bh,
+    int q0, int kv_lo, int n_tiles, int warp, const Opts& o) {
   using C = Tiles<D>;
   const int wg = warp / 4;
   const int lane = threadIdx.x % 32;
@@ -941,14 +961,13 @@ __device__ __forceinline__ void dq_consume(
   const float scale_cap = o.has_cap ? o.scale / o.cap : 0.f;
   const float cap_log2 = o.cap * LOG2E;
 
-  // the rows' lse2 and D (rows past S: +inf and 0, as the workspace's pad)
-  float l2[2], dl[2];
+  // the rows' lse2 (rows past S: +inf, as the workspace's pad), D, summed
+  // over the first sweep, and sum_j dS_ij of the rounded dS
+  float l2[2], dl[2] = {0.f, 0.f}, ds_sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    const size_t at = static_cast<size_t>(bh) * padded(o.S) + row;
-    l2[r] = row < o.S ? lse2[at] : INFINITY;
-    dl[r] = row < o.S ? delta[at] : 0.f;
+    l2[r] = row < o.S ? lse2[static_cast<size_t>(bh) * padded(o.S) + row] : INFINITY;
   }
 
   float acc[D / 2], s[TILE / 2], dp[TILE / 2];
@@ -968,29 +987,61 @@ __device__ __forceinline__ void dq_consume(
     return kv0 + TILE > o.S || qw0 + WG_ROWS > o.S || (o.causal && kv0 + TILE - 1 > qw0) ||
            (o.has_window && qw0 + WG_ROWS - 1 - kv0 >= o.window);
   };
-  // P, dS in place of S, dP; lse2 and D by row (the query)
+  // whether accumulator element idx (row r = (idx >> 1) & 1) is unmasked
+  auto keep = [&](int kv0, int idx) {
+    const int key = kv0 + 8 * (idx >> 2) + col + (idx & 1);
+    const int row = row0 + 8 * ((idx >> 1) & 1);
+    bool ok = key < o.S && row < o.S;
+    if (o.causal) ok = ok && key <= row;
+    if (o.has_window) ok = ok && row - key < o.window;
+    return ok;
+  };
+  // first sweep: D += P dP by row, P from S (dP untouched)
+  auto row_dots = [&](int kv0, auto cap, auto mask) {
+    constexpr bool CAP = decltype(cap)::value;
+    constexpr bool MASK = decltype(mask)::value;
+#pragma unroll
+    for (int idx = 0; idx < TILE / 2; ++idx) {
+      const int r = (idx >> 1) & 1;
+      float p = s[idx], unused = 0.f;
+      p_and_ds<CAP>(p, unused, l2[r], 0.f, !MASK || keep(kv0, idx), scale_log2, scale_cap,
+                    cap_log2);
+      dl[r] = fmaf(p, dp[idx], dl[r]);
+    }
+  };
+  // second sweep: P, dS in place of S, dP; lse2 and D by row (the query)
   auto grads = [&](int kv0, auto cap, auto mask) {
     constexpr bool CAP = decltype(cap)::value;
     constexpr bool MASK = decltype(mask)::value;
 #pragma unroll
     for (int idx = 0; idx < TILE / 2; ++idx) {
       const int r = (idx >> 1) & 1;
-      bool ok = true;
-      if (MASK) {
-        const int key = kv0 + 8 * (idx >> 2) + col + (idx & 1);
-        const int row = row0 + 8 * r;
-        ok = key < o.S && row < o.S;
-        if (o.causal) ok = ok && key <= row;
-        if (o.has_window) ok = ok && row - key < o.window;
+      p_and_ds<CAP>(s[idx], dp[idx], l2[r], dl[r], !MASK || keep(kv0, idx), scale_log2,
+                    scale_cap, cap_log2);
+    }
+  };
+  // D of the rows: the quad's four partial sums, each row's in all four;
+  // the quad's first thread writes it (0 past S) for flash_bwd_dkdv_tc,
+  // every row of the padded workspace that this warpgroup owns
+  auto finish_d = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+      dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+      const int row = row0 + 8 * r;
+      if (lane % 4 == 0 && row < padded(o.S)) {
+        delta[static_cast<size_t>(bh) * padded(o.S) + row] = row < o.S ? dl[r] : 0.f;
       }
-      p_and_ds<CAP>(s[idx], dp[idx], l2[r], dl[r], ok, scale_log2, scale_cap, cap_log2);
     }
   };
 
   mbar_wait(q_full, 0);
-  for (int i = 0; i < n_tiles; ++i) {
+  if (n_tiles == 0) finish_d();
+  for (int i = 0; i < 2 * n_tiles; ++i) {
     const int st = i % STAGES;
-    const int kv0 = (kv_lo + i) * TILE;
+    const bool sweep_d = i < n_tiles;
+    const int kv0 = (kv_lo + i % n_tiles) * TILE;
+    if (i == n_tiles) finish_d();
     mbar_wait(&full[st], (i / STAGES) & 1);
     if (!idle(kv0)) {
       const uint32_t k_addr = smem_addr(sRing + st * 2 * C::TILE_BYTES);
@@ -1005,6 +1056,18 @@ __device__ __forceinline__ void dq_consume(
       hopper::wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
+      if (sweep_d) {
+        if (edge(kv0)) {
+          if (o.has_cap) row_dots(kv0, Flag<true>{}, Flag<true>{});
+          else row_dots(kv0, Flag<false>{}, Flag<true>{});
+        } else if (o.has_cap) {
+          row_dots(kv0, Flag<true>{}, Flag<false>{});
+        } else {
+          row_dots(kv0, Flag<false>{}, Flag<false>{});
+        }
+        mbar_arrive(&empty[st]);
+        continue;
+      }
       if (edge(kv0)) {
         if (o.has_cap) grads(kv0, Flag<true>{}, Flag<true>{});
         else grads(kv0, Flag<false>{}, Flag<true>{});
@@ -1014,6 +1077,16 @@ __device__ __forceinline__ void dq_consume(
         grads(kv0, Flag<false>{}, Flag<false>{});
       }
       pack_a<T, TILE>(dp, da);
+      if (!o.has_cap) {
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {      // registers 8 kk + 2 h, + 1: row h % 2
+            const float2 x = unpack2<T>(da[kk][h]);
+            ds_sum[h & 1] += x.x + x.y;
+          }
+        }
+      }
       // dQ += dS K
       fence_regs(acc);
 #pragma unroll
@@ -1029,6 +1102,25 @@ __device__ __forceinline__ void dq_consume(
     mbar_arrive(&empty[st]);
   }
 
+  if (!o.has_cap) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 1);
+      ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= o.S) continue;
+      const T* k_row = kh + static_cast<size_t>(row) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 kv = unpack2<T>(*reinterpret_cast<const uint32_t*>(k_row + 8 * j));
+        acc[4 * j + 2 * r] -= ds_sum[r] * kv.x;
+        acc[4 * j + 2 * r + 1] -= ds_sum[r] * kv.y;
+      }
+    }
+  }
   store_rows<T, D>(acc, dq + static_cast<size_t>(bh) * o.S * D, row0, col, o.S, o.scale);
 }
 
@@ -1038,8 +1130,8 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
                 const __grid_constant__ CUtensorMap tmap_do,
                 const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v,
-                const float* __restrict__ lse2, const float* __restrict__ delta,
-                T* __restrict__ dq, Opts o) {
+                const float* __restrict__ lse2, float* __restrict__ delta,
+                const T* __restrict__ k, T* __restrict__ dq, Opts o) {
   using C = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -1085,9 +1177,9 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
         hopper::tma_load_3d(sQ + p * OWN * 128, &tmap_q, &q_full, p * PANEL_COLS, q0, bh);
         hopper::tma_load_3d(sDO + p * OWN * 128, &tmap_do, &q_full, p * PANEL_COLS, q0, bh);
       }
-      for (int i = 0; i < n_tiles; ++i) {
+      for (int i = 0; i < 2 * n_tiles; ++i) {      // two sweeps
         const int st = i % STAGES;
-        const int kv0 = (kv_lo + i) * TILE;
+        const int kv0 = (kv_lo + i % n_tiles) * TILE;
         unsigned char* sK = sRing + st * 2 * C::TILE_BYTES;
         mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[st], 2 * C::TILE_BYTES);
@@ -1102,17 +1194,18 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
   } else {
     // ---------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
-    dq_consume<T, D>(sQ, sDO, sRing, &q_full, full, empty, lse2, delta, dq, bh, q0, kv_lo,
-                     n_tiles, warp, o);
+    dq_consume<T, D>(sQ, sDO, sRing, &q_full, full, empty, lse2, delta,
+                     k + static_cast<size_t>(kv_head) * S * D, dq, bh, q0, kv_lo, n_tiles,
+                     warp, o);
   }
 }
 
 // ----------------------------------------------------------------- host
 
 template <typename T, int D>
-int launch_typed(const void* q, const void* k, const void* v, const void* out,
-                 const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                 float* work, int B, int Hkv, const Opts& o, cudaStream_t stream) {
+int launch_typed(const void* q, const void* k, const void* v, const float* lse,
+                 const void* dout, void* dq, void* dk, void* dv, float* work, int B,
+                 int Hkv, const Opts& o, cudaStream_t stream) {
   using C = Tiles<D>;
   const int S = o.S;
   const int rows = B * o.Hq * padded(S);
@@ -1142,14 +1235,14 @@ int launch_typed(const void* q, const void* k, const void* v, const void* out,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
 
-  flash_bwd_prep<T, D / 32><<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0,
-                              stream>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
-                                        lse, lse2, delta, S, rows);
+  flash_bwd_prep<<<(rows + PREP_THREADS - 1) / PREP_THREADS, PREP_THREADS, 0, stream>>>(
+      lse, lse2, S, rows);
   if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
 
   const int blocks = (S + OWN - 1) / OWN;
   flash_bwd_dq_tc<T, D><<<dim3(B * o.Hq, blocks), THREADS, C::SMEM, stream>>>(
-      q_own, do_own, k_tile, v_tile, lse2, delta, static_cast<T*>(dq), o);
+      q_own, do_own, k_tile, v_tile, lse2, delta, static_cast<const T*>(k),
+      static_cast<T*>(dq), o);
   if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
 
   flash_bwd_dkdv_tc<T, D><<<dim3(B * Hkv, blocks), THREADS, C::SMEM, stream>>>(
@@ -1158,15 +1251,14 @@ int launch_typed(const void* q, const void* k, const void* v, const void* out,
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, const void* out,
-             const float* lse, const void* dout, void* dq, void* dk, void* dv, float* work,
-             int B, int Hkv, const Opts& o, cudaStream_t stream) {
+int launch_d(int D, const void* q, const void* k, const void* v, const float* lse,
+             const void* dout, void* dq, void* dk, void* dv, float* work, int B, int Hkv,
+             const Opts& o, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return tcb::launch_typed<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
-                                      stream);
+      return tcb::launch_typed<T, 64>(q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o, stream);
     case 128:
-      return tcb::launch_typed<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
+      return tcb::launch_typed<T, 128>(q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o,
                                        stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1185,7 +1277,7 @@ int flash_attention_bwd_uses_tensor_cores(int dtype, int D) {
 
 // Launches the three kernels on `stream` (no synchronisation) and returns 0,
 // a cudaError_t or a code of the tensor-map encoding
-// (flash_attention_bwd_error_string names each). q, out, dout, dq:
+// (flash_attention_bwd_error_string names each). q, dout, dq:
 // [B, Hq, S, D]; k, v, dk, dv: [B, Hkv, S, D]; all contiguous, of the type
 // `dtype` (0 f32, 1 bf16, 2 f16) and aligned to 16 bytes. lse is the
 // forward's [B * Hq, S] f32 log-sum-exp; work is f32 scratch of
@@ -1194,7 +1286,7 @@ int flash_attention_bwd_uses_tensor_cores(int dtype, int D) {
 // 256, B * Hq <= 65535. has_window = 0 ignores `window`; has_cap = 0
 // ignores `cap`.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                               const void* out, const float* lse, const void* dout,
+                               const float* lse, const void* dout,
                                void* dq, void* dk, void* dv, float* work, int dtype,
                                int B, int Hq, int Hkv, int S, int D, float sm_scale,
                                int causal, int has_window, int window, int has_cap,
@@ -1206,25 +1298,23 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flash_attention_bwd_uses_tensor_cores(dtype, D)) {
     if (dtype == BF16) {
-      return tcb::launch_d<__nv_bfloat16>(D, q, k, v, out, lse, dout, dq, dk, dv, work, B,
-                                          Hkv, o, st);
+      return tcb::launch_d<__nv_bfloat16>(D, q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o,
+                                          st);
     }
-    return tcb::launch_d<__half>(D, q, k, v, out, lse, dout, dq, dk, dv, work, B, Hkv, o,
-                                 st);
+    return tcb::launch_d<__half>(D, q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o, st);
   }
   float* delta = work;
   cudaError_t err;
   switch (dtype) {
     case F32:
-      err = launch_d<float>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Hkv, o, st);
+      err = launch_d<float>(D, q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o, st);
       break;
     case BF16:
-      err = launch_d<__nv_bfloat16>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B,
-                                    Hkv, o, st);
+      err = launch_d<__nv_bfloat16>(D, q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o,
+                                    st);
       break;
     case F16:
-      err = launch_d<__half>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Hkv, o,
-                             st);
+      err = launch_d<__half>(D, q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o, st);
       break;
     default:
       err = cudaErrorInvalidValue;

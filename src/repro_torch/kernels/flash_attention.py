@@ -22,7 +22,13 @@ and of the gradient that JAX's autodiff takes of the reference attention:
   tensor-core backward.
 * :func:`flash_attention_lse` and :func:`flash_attention_backward` are the
   two halves the Function runs: the forward with each row's log-sum-exp,
-  and dq, dk, dv from q, k, v, the output, the log-sum-exp and d out.
+  and dq, dk, dv from q, k, v, the log-sum-exp and d out. The backward
+  takes no output: each row's ``D = sum_j P dP`` is summed from the
+  probabilities it recomputes, where FlashAttention-2 takes ``dO . o``
+  from the forward's output. An error in D reaches dq times the keys'
+  shared component, which the exact dq does not see, and ``dO . o`` from
+  a 16-bit output put dq 22 % of its max off on whisper-small's last
+  decoder layer, whose keys share a mean 13 times their spread.
 * :func:`flash_attention_torch` is the plain PyTorch version of the
   forward, blocked the same way as the reference kernel: an online softmax
   over kv blocks with f32 running max, denominator and accumulator,
@@ -78,7 +84,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attention_bwd_launch.argtypes is None:
         lib.flash_attention_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -163,19 +169,18 @@ def _forward_kernel(q, k, v, sm_scale, causal, window, softcap, with_lse):
     return out, lse
 
 
-def _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap):
+def _backward_kernel(q, k, v, lse, do, sm_scale, causal, window, softcap):
     """Launch the backward kernel on CUDA tensors; returns (dq, dk, dv) in
     the inputs' dtype."""
     b, hq, s_len, d = q.shape
     _check_cuda(q, k, v)
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must be like q ({list(q.shape)}, {q.dtype}, "
-                             f"{q.device}), got {list(t.shape)}, {t.dtype}, {t.device}")
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must be like q ({list(q.shape)}, {q.dtype}, {q.device}), "
+                         f"got {list(do.shape)}, {do.dtype}, {do.device}")
     if lse.shape != (b * hq, s_len) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be [{b * hq}, {s_len}] float32 on {q.device}, got "
                          f"{list(lse.shape)} {lse.dtype} on {lse.device}")
-    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lse = _aligned(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # the kernels' scratch: each row's D and lse, rows padded to whole tiles
@@ -186,8 +191,7 @@ def _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             work.data_ptr(), _DTYPES[q.dtype], b, hq, k.shape[1], s_len, d,
             float(sm_scale), int(causal), has_window, win,
             int(softcap is not None), float(softcap or 0.0), stream,
@@ -218,42 +222,42 @@ def flash_attention_lse(q, k, v, *, sm_scale: float, causal: bool = True,
     return _forward_kernel(q, k, v, sm_scale, causal, window, softcap, True)
 
 
-def flash_attention_backward(q, k, v, o, lse, do, *, sm_scale: float,
+def flash_attention_backward(q, k, v, lse, do, *, sm_scale: float,
                              causal: bool = True, window: int | None = None,
                              softcap: float | None = None, block_q: int = 128,
                              block_kv: int = 128):
-    """dq, dk, dv of :func:`flash_attention` from its inputs, its output
-    ``o``, the log-sum-exp ``lse`` of :func:`flash_attention_lse` and the
-    output's gradient ``do``. CUDA tensors launch the backward kernels (on
-    tensor cores for bf16/f16 at D 64 and 128, else on CUDA cores); CPU
-    tensors run :func:`flash_attention_backward_torch` with the blocks."""
+    """dq, dk, dv of :func:`flash_attention` from its inputs, the
+    log-sum-exp ``lse`` of :func:`flash_attention_lse` and the output's
+    gradient ``do``. CUDA tensors launch the backward kernels (on tensor
+    cores for bf16/f16 at D 64 and 128, else on CUDA cores); CPU tensors run
+    :func:`flash_attention_backward_torch` with the blocks."""
     if q.device.type == "cpu":
         return flash_attention_backward_torch(
-            q, k, v, o, lse, do, sm_scale=sm_scale, causal=causal, window=window,
+            q, k, v, lse, do, sm_scale=sm_scale, causal=causal, window=window,
             softcap=softcap, block_q=block_q, block_kv=block_kv)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return _backward_kernel(q, k, v, o, lse, do, sm_scale, causal, window, softcap)
+    return _backward_kernel(q, k, v, lse, do, sm_scale, causal, window, softcap)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward kernel with the
     log-sum-exp, then the backward kernel (their plain versions on the CPU).
-    Saves q, k, v, the output and the log-sum-exp."""
+    Saves q, k, v and the log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, window, softcap, block_q, block_kv):
         opts = dict(sm_scale=sm_scale, causal=causal, window=window,
                     softcap=softcap, block_q=block_q, block_kv=block_kv)
         out, lse = flash_attention_lse(q, k, v, **opts)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, **ctx.opts)
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, lse, do, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -380,7 +384,6 @@ def flash_attention_backward_torch(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    o: torch.Tensor,
     lse: torch.Tensor,
     do: torch.Tensor,
     *,
@@ -394,13 +397,14 @@ def flash_attention_backward_torch(
     """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the
     inputs' dtypes, computed in f32.
 
-    ``o`` is the forward's output, ``lse`` its [B * Hq, S] log-sum-exp and
-    ``do`` the output's gradient. Blocked as :func:`flash_attention_torch`
-    (the same kv ranges per query block): per block, the probabilities are
-    recomputed as ``P = exp(s - lse)`` (0 where masked or the row's lse is
-    -inf), then ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)`` with
-    ``D = rowsum(dO o)``, times ``1 - (s / cap)^2`` for a softcap, and
-    ``dQ += dS K scale``, ``dK += dS^T Q scale``, summed over the GQA group.
+    ``lse`` is the forward's [B * Hq, S] log-sum-exp and ``do`` the
+    output's gradient. Blocked as :func:`flash_attention_torch` (the same
+    kv ranges per query block): per block, the probabilities are recomputed
+    as ``P = exp(s - lse)`` (0 where masked or the row's lse is -inf) and
+    ``dP = dO V^T``; a first sweep sums each row's ``D = sum_j P dP``, a
+    second takes ``dV += P^T dO``, ``dS = P (dP - D)``, times ``1 - (s /
+    cap)^2`` for a softcap, and ``dQ += dS K scale``, ``dK += dS^T Q
+    scale``, summed over the GQA group.
     """
     b, hq, s_len, d = q.shape
     hkv = k.shape[1]
@@ -411,22 +415,18 @@ def flash_attention_backward_torch(
     qf = q.float().reshape(grouped)
     kf, vf = k.float(), v.float()
     dof = do.float().reshape(grouped)
-    delta = (dof * o.float().reshape(grouped)).sum(dim=-1, keepdim=True)
     lse = lse.float().reshape(b, hkv, group, s_len, 1)
     live = torch.isfinite(lse)
     lse = torch.where(live, lse, 0.0)
     pos = torch.arange(s_len, device=q.device)
-    dq = torch.zeros_like(qf)
-    dk = torch.zeros_like(kf)
-    dv = torch.zeros_like(vf)
-    for q0 in range(0, s_len, block_q):
-        q1 = min(q0 + block_q, s_len)
+
+    def tiles(q0, q1):
+        """(k0, k1, s, p, dp) of each kv block that query rows [q0, q1) see."""
         lo, hi = _kv_range(q0, q1, s_len, causal, window, block_kv)
         qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
         for k0 in range(lo, hi, block_kv):
             k1 = min(k0 + block_kv, s_len)
-            kb, vb = kf[:, :, None, k0:k1], vf[:, :, None, k0:k1]
-            s = qb @ kb.transpose(-1, -2) * sm_scale
+            s = qb @ kf[:, :, None, k0:k1].transpose(-1, -2) * sm_scale
             if softcap is not None:
                 s = softcap * torch.tanh(s / softcap)
             qp, kp = pos[q0:q1, None], pos[None, k0:k1]
@@ -437,13 +437,22 @@ def flash_attention_backward_torch(
                 mask &= qp - kp < window
             mask = mask & live[:, :, :, q0:q1]
             p = torch.where(mask, torch.exp(s - lse[:, :, :, q0:q1]), 0.0)
-            dp = dob @ vb.transpose(-1, -2)
-            ds = p * (dp - delta[:, :, :, q0:q1])
+            yield k0, k1, s, p, dob @ vf[:, :, None, k0:k1].transpose(-1, -2)
+
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, s_len, block_q):
+        q1 = min(q0 + block_q, s_len)
+        qb, dob = qf[:, :, :, q0:q1], dof[:, :, :, q0:q1]
+        delta = sum((p * dp).sum(dim=-1, keepdim=True) for _, _, _, p, dp in tiles(q0, q1))
+        for k0, k1, s, p, dp in tiles(q0, q1):
+            ds = p * (dp - delta)
             if softcap is not None:
                 ds = ds * (1.0 - (s / softcap) ** 2)
             dv[:, :, k0:k1] += (p.transpose(-1, -2) @ dob).sum(dim=2)
             dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qb).sum(dim=2)
-            dq[:, :, :, q0:q1] += ds @ kb
+            dq[:, :, :, q0:q1] += ds @ kf[:, :, None, k0:k1]
     return ((dq * sm_scale).reshape(b, hq, s_len, d).to(q.dtype),
             (dk * sm_scale).to(k.dtype), dv.to(v.dtype))
 

@@ -4,15 +4,20 @@ The PyTorch counterpart of the JAX package's ``src/repro/launch/serve.py``.
 A request queue is drained in fixed-size batches; each batch is prefilled in
 parallel (attention in the hand-written flash-attention kernel) and decoded
 token by token with greedy sampling over the family's caches (KV,
-compressed MLA latents, recurrent state). Runs the dense family
-(qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), the MoE family
-(deepseek-moe-16b, deepseek-v3-671b), the SSM family (xlstm-125m) and the
-hybrid family (hymba-1.5b), full size or ``--reduced``, on the GPU unless
-``--device cpu``:
+compressed MLA latents, recurrent state, cross-attention K/V). Runs every
+family: dense (qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), MoE
+(deepseek-moe-16b, deepseek-v3-671b), vlm (paligemma-3b), audio
+(whisper-small), SSM (xlstm-125m) and hybrid (hymba-1.5b), full size or
+``--reduced``, on the GPU unless ``--device cpu``:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
       --reduced --device cpu --requests 16 --batch 4 --prompt-len 32 --gen 16
+
+As in the reference, a vlm prefill is text only and its decode positions
+count the image prefix too, so with the default cache length every decode
+step writes the cache's last slot (the write's start is clamped); an audio
+prefill encodes zero frames.
 
 Weights are random, from a ``torch.Generator`` seeded by ``--seed``.
 
@@ -38,15 +43,32 @@ from ..kernels.ops import resolve_device
 from ..models import build_model
 
 
+def prefill_batch(cfg, tokens: torch.Tensor):
+    """What ``serve_batch`` prefills for ``tokens`` [b, s]: the tokens, and
+    for the audio family zero frames [b, frontend_len, d_model] in f32
+    beside them."""
+    if cfg.family != "audio":
+        return tokens
+    frames = torch.zeros((tokens.shape[0], cfg.frontend_len, cfg.d_model),
+                         dtype=torch.float32, device=tokens.device)
+    return {"frames": frames, "tokens": tokens}
+
+
+def decode_start(cfg, prompt_len: int) -> int:
+    """The position of the first decode step after a prompt of
+    ``prompt_len``: after the prompt, any meta tokens and, for the vlm
+    family, the image prefix (which its text-only prefill leaves out)."""
+    return prompt_len + cfg.num_meta_tokens + (cfg.frontend_len if cfg.family == "vlm" else 0)
+
+
 def serve_batch(spec, params, prompts: np.ndarray, gen: int, cache_len: int) -> np.ndarray:
-    """Prefill ``prompts`` [b, s] and greedily decode ``gen`` tokens;
-    returns them as [b, gen] int64 on the host. Decode positions follow the
-    prompt and any meta tokens before it."""
-    s = prompts.shape[1]
-    base = s + spec.cfg.num_meta_tokens
+    """Prefill ``prompts`` [b, s] and greedily decode ``gen`` tokens from
+    :func:`decode_start`; returns them as [b, gen] int64 on the host."""
+    cfg = spec.cfg
+    base = decode_start(cfg, prompts.shape[1])
     device = params["embed"].device
-    logits, caches = spec.prefill(params, torch.as_tensor(prompts, device=device),
-                                  cache_len)
+    tokens = torch.as_tensor(prompts, device=device)
+    logits, caches = spec.prefill(params, prefill_batch(cfg, tokens), cache_len)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for i in range(gen - 1):

@@ -1,20 +1,23 @@
 """End-to-end training driver.
 
 The PyTorch counterpart of the JAX package's ``src/repro/launch/train.py``.
-Trains the dense family (qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b), the
-MoE family (deepseek-moe-16b, deepseek-v3-671b), the SSM family
-(xlstm-125m) and the hybrid family (hymba-1.5b), full size,
+Trains every family: dense (qwen3-0.6b, gemma2-9b/27b, mistral-nemo-12b),
+MoE (deepseek-moe-16b, deepseek-v3-671b), vlm (paligemma-3b: the batch's
+``prefix_embeds`` under prefix-LM masking), audio (whisper-small: the
+batch's ``frames`` through the encoder), SSM (xlstm-125m) and hybrid
+(hymba-1.5b), full size,
 ``--params100m`` or ``--reduced``, on one device (CUDA unless ``--device
 cpu``), with the substrate ported so far: synthetic data, AdamW (+ optional
 int8 gradient compression with error feedback), async checkpointing and the
 fault-tolerant runner (restart from checkpoint, straggler accounting).
-Attention's forward and gradient run in the hand-written flash-attention
-kernels on the card; the recurrent mixers are plain torch ops.
+Causal attention's forward and gradient run in the hand-written
+flash-attention kernels on the card; prefix-LM, bidirectional and
+cross-attention and the recurrent mixers are plain torch ops.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
-      --reduced --device cpu --steps 20 --batch 8 --seq 128
-  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
-      --steps 4 --batch 4 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --reduced --device cpu --steps 20 --batch 8 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \\
+      --steps 2 --batch 2 --seq 2048
 
 Weights are random, from a ``torch.Generator`` seeded by ``--seed``. The
 reference's sharded data and parameters wait for the sharding slice.

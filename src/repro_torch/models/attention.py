@@ -17,6 +17,11 @@ outside any Pallas kernel.
 
 The cache is updated in place (the reference returns a new one): a decode
 step then writes one position per layer instead of copying the whole cache.
+A pass of ``s`` rows writes them at ``positions[0]`` clamped into ``[0,
+cache_len - s]``, as the reference's ``dynamic_update_slice`` does
+(:func:`clamped_block_index`): the vlm family's served decode runs past the
+end of its cache, and each step then overwrites the last slot. Rotary
+angles and the ``valid`` mask keep the unclamped positions.
 
 MLA attends in plain torch ops on every pass, as the reference does: the
 flash kernel takes one head dim for q, k and v, and MLA's v dim (128 for
@@ -36,9 +41,6 @@ import torch
 
 from ..kernels.flash_attention import flash_attention_padded
 from .layers import dense_param, rms_norm, rope, softcap
-
-#: where the model-zoo parts not ported yet are queued
-NOT_PORTED = 'ROADMAP queue 1, "MLA, MoE and the other LM families"'
 
 
 class KVCache(NamedTuple):
@@ -62,6 +64,16 @@ def gqa_init(gen: torch.Generator, cfg, layer_dtype, device) -> dict:
         p["q_norm"] = torch.zeros((hd,), dtype=layer_dtype, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=layer_dtype, device=device)
     return p
+
+
+def clamped_block_index(positions: torch.Tensor, length: int) -> torch.Tensor:
+    """The indices of a block of ``len(positions)`` rows starting at
+    ``positions[0]`` in an axis of ``length``, the start clamped into ``[0,
+    length - rows]`` as ``jax.lax.dynamic_update_slice`` (a cache write)
+    and ``dynamic_slice`` (a read) clamp it. Stays on the device."""
+    s = positions.shape[0]
+    start = positions[0].clamp(0, max(length - s, 0))
+    return start + torch.arange(s, device=positions.device)
 
 
 def _mask_bias(q_pos, k_pos, *, causal: bool, window, prefix_len=None) -> torch.Tensor:
@@ -144,9 +156,10 @@ def gqa_attention(
 
     new_cache = None
     if cache is not None and cross_kv is None:
-        # write k/v at the pass's positions
-        cache.k.index_copy_(2, positions, k)
-        cache.v.index_copy_(2, positions, v)
+        # write k/v at the pass's positions (the block's start clamped)
+        idx = clamped_block_index(positions, cache.k.shape[2])
+        cache.k.index_copy_(2, idx, k)
+        cache.v.index_copy_(2, idx, v)
         new_cache = cache
         # the kernel attends over the pass's own k/v: a prefill from
         # position 0 sees nothing else of the cache, a later one does
@@ -236,7 +249,8 @@ def mla_attention(
 
     new_cache = None
     if cache is not None:
-        cache.c_kv.index_copy_(1, positions, torch.cat([c_kv, k_rope], dim=-1))
+        cache.c_kv.index_copy_(1, clamped_block_index(positions, cache.c_kv.shape[1]),
+                               torch.cat([c_kv, k_rope], dim=-1))
         new_cache = cache
         c_kv, k_rope = cache.c_kv[..., :m.kv_lora], cache.c_kv[..., m.kv_lora:]
         k_pos = torch.arange(cache.c_kv.shape[1], device=x.device)

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for the dense and MoE families.
+"""Decoder-LM assembly for the dense, MoE and vision-language families.
 
 The PyTorch counterpart of the JAX package's ``src/repro/models/build.py``.
 Parameters are nested dicts of tensors with the reference's keys; a layer
@@ -6,18 +6,20 @@ stack is a list of per-layer dicts (the reference stacks them on a leading
 axis for ``lax.scan``), run by a plain loop. An MoE model has a stack of
 ``num_dense_layers`` dense blocks and one of MoE blocks after it; MLA
 replaces GQA in every block when ``cfg.mla`` is set, and ``cfg.mtp`` adds
-the multi-token-prediction head to the loss. With ``cfg.remat``, grad mode
-on and no caches, each layer runs under ``torch.utils.checkpoint`` (the
-reference wraps each layer in ``jax.checkpoint``): its activations, and its
-MoE aux loss, are recomputed in the backward. Caches are lists of per-layer
+the multi-token-prediction head to the loss. ``cfg.num_meta_tokens``
+learned rows, and a vlm's ``prefix_embeds`` (the stubbed vision tower's
+patch embeddings), are prepended on passes of more than one token; with
+``cfg.prefix_lm`` attention is bidirectional over that prefix. With
+``cfg.remat``, grad mode on and no caches, each layer runs under
+``torch.utils.checkpoint`` (the reference wraps each layer in
+``jax.checkpoint``): its activations, and its MoE aux loss, are recomputed
+in the backward. Caches are lists of per-layer
 :class:`KVCache` or :class:`MLACache`, updated in place. ``lm_loss`` is the
 training loss.
 
 Single device only: the reference's expert-parallel ``shard_map`` island
-waits for the sharding slice (ROADMAP queue 2). Not ported yet, and raising
-``NotImplementedError`` when a config asks for them: meta tokens,
-prefix-LM masking and frontends (ROADMAP queue 1, "MLA, MoE and the other
-LM families").
+waits for the sharding slice (ROADMAP queue 1, "Sharding and the
+distributed substrate").
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ops import resolve_device
 from .api import ArchConfig
 from .attention import (
-    NOT_PORTED, KVCache, MLACache, gqa_attention, gqa_init, make_kv_cache,
+    KVCache, MLACache, gqa_attention, gqa_init, make_kv_cache,
     make_mla_cache, mla_attention, mla_init,
 )
 from .layers import (
@@ -37,17 +39,6 @@ from .layers import (
     gelu_mlp_init, rms_norm, softcap, swiglu_mlp, swiglu_mlp_init,
 )
 from .moe import moe_ffn, moe_init
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a config that needs a part of the LM path not ported yet."""
-    missing = [name for name, on in (
-        ("meta tokens", bool(cfg.num_meta_tokens)),
-        ("prefix-LM masking", cfg.prefix_lm),
-        ("a frontend", cfg.frontend is not None),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet: {NOT_PORTED}")
 
 
 # ------------------------------------------------------------------ blocks
@@ -74,6 +65,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device) -> dict
 
 def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, *, kind: str, window: int | None = None,
+                prefix_len: int | None = None,
                 cache: KVCache | MLACache | None = None):
     """One pre-norm block; returns (x, cache, aux), aux the MoE block's
     load-balance loss (0 for a dense block)."""
@@ -82,7 +74,8 @@ def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
         a, new_cache = mla_attention(p["attn"], h, positions, cfg, cache=cache)
     else:
         a, new_cache = gqa_attention(p["attn"], h, positions, cfg,
-                                     window=window, cache=cache)
+                                     window=window, cache=cache,
+                                     prefix_len=prefix_len)
     if cfg.sandwich_norm:
         a = rms_norm(a, p["post_attn_norm"])
     x = x + a
@@ -119,17 +112,18 @@ def layer_windows(cfg: ArchConfig, num_layers: int, offset: int = 0) -> np.ndarr
 
 
 def _block_out(p: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ArchConfig, kind: str, window: int):
+               cfg: ArchConfig, kind: str, window: int, prefix_len: int | None):
     """A block without a cache, as :func:`apply_stack` checkpoints it:
     (x, aux), so that the aux loss keeps its gradient through the
     recompute."""
-    out, _, aux = block_apply(p, x, positions, cfg, kind=kind, window=window)
+    out, _, aux = block_apply(p, x, positions, cfg, kind=kind, window=window,
+                              prefix_len=prefix_len)
     return out, aux
 
 
 def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
                 positions: torch.Tensor, cfg: ArchConfig, *, kind: str,
-                caches=None):
+                caches=None, prefix_len: int | None = None):
     """A plain loop over the layers of one stack; returns (x, aux summed
     over the layers, caches).
 
@@ -141,14 +135,14 @@ def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
     if cfg.remat and caches is None and torch.is_grad_enabled():
         for i, p_l in enumerate(stack):
             x, aux_l = checkpoint(_block_out, p_l, x, positions, cfg, kind,
-                                  int(windows[i]), use_reentrant=False,
+                                  int(windows[i]), prefix_len, use_reentrant=False,
                                   preserve_rng_state=False)
             aux = aux + aux_l
         return x, aux, None
     new_caches = []
     for i, p_l in enumerate(stack):
         x, nc, aux_l = block_apply(p_l, x, positions, cfg, kind=kind,
-                                   window=int(windows[i]),
+                                   window=int(windows[i]), prefix_len=prefix_len,
                                    cache=None if caches is None else caches[i])
         aux = aux + aux_l
         new_caches.append(nc)
@@ -177,13 +171,16 @@ def _lm_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
         params["mtp_block"] = block_init(gen, cfg, "dense", device)
         params["mtp_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                          device=device)
+    if cfg.num_meta_tokens:
+        meta = torch.randn((cfg.num_meta_tokens, cfg.d_model), generator=gen,
+                           device=device, dtype=torch.float32)
+        params["meta_tokens"] = (meta * 0.02).to(cfg.dtype)
     return params
 
 
 def _stacks(cfg: ArchConfig):
     """(params key, block kind, layers, window offset) of each layer stack:
     an MoE model's ``num_dense_layers`` dense blocks, then its MoE blocks."""
-    check_ported(cfg)
     n_dense = cfg.num_dense_layers if cfg.moe else cfg.num_layers
     n_moe = cfg.num_layers - n_dense if cfg.moe else 0
     out = []
@@ -207,13 +204,24 @@ def _unembed(params, cfg, x):
     return softcap(x @ head, cfg.final_softcap)
 
 
-def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None):
+def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
+               prefix_embeds=None):
     """Shared trunk: embeddings -> stacks -> (hidden states, aux summed over
-    the layers, caches)."""
-    s = tokens.shape[1]
+    the layers, caches). On a pass of more than one token the meta tokens,
+    then ``prefix_embeds`` [b, p, d_model], are prepended (during decode
+    they already sit in the cache); with ``cfg.prefix_lm`` attention is
+    bidirectional over everything prepended."""
+    b, s = tokens.shape
     x = _embed(params, cfg, tokens)
+    if params.get("meta_tokens") is not None and s > 1:
+        meta = params["meta_tokens"][None].expand(b, cfg.num_meta_tokens, cfg.d_model)
+        x = torch.cat([meta.to(x.dtype), x], dim=1)
+    if prefix_embeds is not None and s > 1:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    s_eff = x.shape[1]
     if positions is None:
-        positions = torch.arange(s, device=x.device)
+        positions = torch.arange(s_eff, device=x.device)
+    prefix_len = (s_eff - s) if (cfg.prefix_lm and s_eff > s) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: dict = {}
     for stack_name, kind, n_layers, offset in _stacks(cfg):
@@ -221,6 +229,7 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None):
             params[stack_name], layer_windows(cfg, n_layers, offset), x,
             positions, cfg, kind=kind,
             caches=caches.get(stack_name) if caches is not None else None,
+            prefix_len=prefix_len,
         )
         aux = aux + aux_s
         new_caches[stack_name] = nc
@@ -233,9 +242,15 @@ def lm_loss(params, cfg: ArchConfig, batch):
     times the multi-token-prediction loss (``cfg.mtp``: the token after
     next, from the last hidden state and the next token's embedding) and
     the MoE aux loss; returns (loss, metrics) with metrics ``ce``, ``aux``
-    (0 without MoE layers) and, with MTP, ``mtp``."""
+    (0 without MoE layers) and, with MTP, ``mtp``. A vlm batch's
+    ``prefix_embeds`` go before the tokens; the rows of any prefix are
+    dropped before the head."""
     tokens, labels = batch["tokens"], batch["labels"]
-    x, aux, _ = lm_forward(params, cfg, tokens)
+    x, aux, _ = lm_forward(params, cfg, tokens,
+                           prefix_embeds=batch.get("prefix_embeds"))
+    strip = x.shape[1] - tokens.shape[1]
+    if strip:
+        x = x[:, strip:]
     logits = _unembed(params, cfg, x)
     loss = cross_entropy_loss(logits, labels)
     metrics = {"ce": loss, "aux": aux}

@@ -39,6 +39,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> tor
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in f32 (the biased variance), cast back."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding (halves layout). x: [..., seq, dim(even)],
     positions: [..., seq] (broadcast against x's leading dims)."""

@@ -21,7 +21,8 @@ scatter-add does. No float atomics are involved, so a forward gives the
 same bits every run, and no step reads a value back to the host.
 
 The expert-parallel form of the reference (experts sharded over a mesh
-axis, one ``psum``) waits for the sharding slice (ROADMAP queue 2).
+axis, one ``psum``) waits for the sharding slice (ROADMAP queue 1,
+"Sharding and the distributed substrate").
 """
 
 from __future__ import annotations

@@ -1,23 +1,22 @@
-"""build_model: ArchConfig -> ModelSpec, for the dense, MoE, SSM and hybrid
-families.
+"""build_model: ArchConfig -> ModelSpec, for every family.
 
-The PyTorch counterpart of the JAX package's ``src/repro/models/zoo.py``.
+The PyTorch counterpart of the JAX package's ``src/repro/models/zoo.py``:
 ``family == "dense"`` (qwen3-0.6b, gemma2-9b, gemma2-27b,
-mistral-nemo-12b), ``family == "moe"`` (deepseek-moe-16b,
-deepseek-v3-671b: MoE layers, MLA, multi-token prediction), ``family ==
-"ssm"`` (xlstm-125m: mLSTM / sLSTM blocks) and ``family == "hybrid"``
-(hymba-1.5b: attention and SSD heads in parallel, meta tokens) are ported;
-the ``vlm`` and ``audio`` families raise ``NotImplementedError`` (ROADMAP
-queue 1, "MLA, MoE and the other LM families").
+mistral-nemo-12b), ``"moe"`` (deepseek-moe-16b, deepseek-v3-671b: MoE
+layers, MLA, multi-token prediction), ``"vlm"`` (paligemma-3b: the decoder
+LM with a prefix of patch embeddings under prefix-LM masking), ``"audio"``
+(whisper-small: encoder-decoder), ``"ssm"`` (xlstm-125m: mLSTM / sLSTM
+blocks) and ``"hybrid"`` (hymba-1.5b: attention and SSD heads in parallel,
+meta tokens). An unknown family raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 from . import build as lm
 from . import hymba as hy
+from . import whisper as wh
 from . import xlstm as xl
 from .api import ArchConfig, ModelSpec
-from .attention import NOT_PORTED
 
 
 def _tokens(batch):
@@ -27,9 +26,36 @@ def _tokens(batch):
 def build_model(cfg: ArchConfig) -> ModelSpec:
     """The surface of ``cfg``'s model: ``init(seed, device)``,
     ``loss_fn(params, batch) -> (loss, metrics)``, ``prefill(params,
-    tokens, cache_len)``, ``decode_step(params, token, caches, pos)`` and
-    ``make_caches(params, batch, cache_len)``."""
+    batch, cache_len)`` (tokens, or a dict with ``tokens``, and for the
+    audio family ``frames``), ``decode_step(params, token, caches, pos)``
+    and ``make_caches(params, batch, cache_len)``."""
     fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        def make_caches(params, batch, cache_len):
+            extra = cfg.frontend_len + cfg.num_meta_tokens
+            return lm.lm_make_caches(params, cfg, batch, cache_len + extra)
+
+        # prefill is text only and sizes its caches itself, as the
+        # reference's lm_prefill does (without make_caches' prefix room)
+        return ModelSpec(
+            cfg=cfg,
+            init=lambda seed, device="cuda": lm._lm_init(seed, cfg, device),
+            loss_fn=lambda p, b: lm.lm_loss(p, cfg, b),
+            prefill=lambda p, b, n: lm.lm_prefill(p, cfg, _tokens(b), n),
+            decode_step=lambda p, t, c, pos: lm.lm_decode_step(p, cfg, t, c, pos),
+            make_caches=make_caches,
+            param_count=param_count,
+        )
+    if fam == "audio":
+        return ModelSpec(
+            cfg=cfg,
+            init=lambda seed, device="cuda": wh.whisper_init(seed, cfg, device),
+            loss_fn=lambda p, b: wh.whisper_loss(p, cfg, b),
+            prefill=lambda p, b, n: wh.whisper_prefill(p, cfg, b, n),
+            decode_step=lambda p, t, c, pos: wh.whisper_decode_step(p, cfg, t, c, pos),
+            make_caches=lambda p, b, n: wh.whisper_make_caches(p, cfg, b, n),
+            param_count=param_count,
+        )
     if fam == "ssm":
         return ModelSpec(
             cfg=cfg,
@@ -50,29 +76,7 @@ def build_model(cfg: ArchConfig) -> ModelSpec:
             make_caches=lambda p, b, n: hy.hymba_make_caches(p, cfg, b, n),
             param_count=param_count,
         )
-    if fam not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet: {NOT_PORTED}")
-    lm.check_ported(cfg)
-
-    def init(seed, device="cuda"):
-        return lm._lm_init(seed, cfg, device)
-
-    def loss_fn(params, batch):
-        return lm.lm_loss(params, cfg, batch)
-
-    def prefill(params, batch, cache_len):
-        return lm.lm_prefill(params, cfg, _tokens(batch), cache_len)
-
-    def decode_step(params, token, caches, pos):
-        return lm.lm_decode_step(params, cfg, token, caches, pos)
-
-    def make_caches(params, batch, cache_len):
-        return lm.lm_make_caches(params, cfg, batch, cache_len)
-
-    return ModelSpec(cfg=cfg, init=init, loss_fn=loss_fn, prefill=prefill,
-                     decode_step=decode_step, make_caches=make_caches,
-                     param_count=param_count)
+    raise ValueError(f"unknown family {fam}")
 
 
 def param_count(params) -> int:

@@ -24,7 +24,7 @@ from repro_torch.kernels.ops import cgra_run, compile_program
 from repro_torch.kernels.ref import cgra_sim_reference
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train
-from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.serve import prefill_batch, serve_batch
 from repro_torch.models import attention, build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.tree import leaves, unflatten
@@ -230,6 +230,83 @@ def test_hymba_reduced_serves_and_trains_on_the_card(cuda):
     tok = torch.as_tensor(prompts[:, :1])
     got, _ = spec32.decode_step(p32, tok.to(cuda), caches, pos)
     want, _ = spec32.decode_step(_to(p32, "cpu"), tok, cpu_caches, pos)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_paligemma_reduced_decodes_past_its_cache_on_the_card(cuda):
+    """Reduced paligemma-3b in f32 on the card: served decode runs past the
+    end of the cache (positions after the 16-row image prefix) with every
+    write clamped into the last slot, no device assert; prefill and decode
+    logits match the CPU path's within 1e-4; a prefix-LM training step
+    launches no flash kernel."""
+    cfg = get_config("paligemma-3b").reduced()
+    spec = build_model(cfg)
+    params = spec.init(0, cuda)
+    cpu = _to(params, "cpu")
+    prompts = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab, size=(2, 40)))
+    cache_len = 40 + 4 + 8
+    got, caches = spec.prefill(params, prompts.to(cuda), cache_len)
+    want, cpu_caches = spec.prefill(cpu, prompts, cache_len)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    base = 40 + cfg.frontend_len
+    assert base + 3 >= cache_len
+    for i in range(3):
+        tok = prompts[:, i:i + 1]
+        got, caches = spec.decode_step(params, tok.to(cuda), caches, base + i)
+        want, cpu_caches = spec.decode_step(cpu, tok, cpu_caches, base + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches["dense_stack"][0].k.cpu(), cpu_caches["dense_stack"][0].k,
+                               atol=1e-4, rtol=1e-4)
+    tokens = serve_batch(spec, params, prompts.numpy(), 4, cache_len)
+    torch.cuda.synchronize()
+    assert tokens.shape == (2, 4) and ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    before = flash_attention.launches
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device=cuda)
+    _, m = train.make_step(spec, opt_cfg, compression=False)(
+        state, SyntheticLM(cfg, 2, 40, seed=0).batch_at(0, cuda))
+    assert flash_attention.launches == before and bool(torch.isfinite(m["loss"]))
+
+
+def test_whisper_reduced_launches_the_flash_kernels_on_the_card(cuda):
+    """Reduced whisper-small at head dim 64 in bf16 on the card: a prefill
+    (224 tokens: padded to 256) launches the tensor-core forward once per
+    decoder layer, two prefills give the same logits, a training step the
+    forward twice (remat) and the tensor-core backward once per decoder
+    layer with a finite loss; in f32 the card's prefill and decode logits
+    match the CPU path's within 1e-4."""
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(), head_dim=64,
+                              max_positions=256, dtype=torch.bfloat16)
+    spec = build_model(cfg)
+    params = spec.init(0, cuda)
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab, size=(2, 224))
+    batch = prefill_batch(cfg, torch.as_tensor(prompts, device=cuda))
+    tc = flash_attention.tensor_core_launches
+    a = spec.prefill(params, batch, 240)[0]
+    assert flash_attention.tensor_core_launches == tc + cfg.num_layers
+    b = spec.prefill(params, batch, 240)[0]
+    assert torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+    tokens = serve_batch(spec, params, prompts, 4, 240)
+    assert tokens.shape == (2, 4) and ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    state = train.make_state(spec, opt_cfg, 0, compression=False, device=cuda)
+    tc, tc_bwd = flash_attention.tensor_core_launches, flash_attention.tensor_core_backward_launches
+    _, m = train.make_step(spec, opt_cfg, compression=False)(
+        state, SyntheticLM(cfg, 2, 200, seed=0).batch_at(0, cuda))
+    assert flash_attention.tensor_core_launches - tc == 2 * cfg.num_layers
+    assert flash_attention.tensor_core_backward_launches - tc_bwd == cfg.num_layers
+    assert bool(torch.isfinite(m["loss"]))
+    spec32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    p32 = spec32.init(0, cuda)
+    frames = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    host = {"frames": frames, "tokens": torch.as_tensor(prompts[:, :100])}
+    got, caches = spec32.prefill(p32, {k: v.to(cuda) for k, v in host.items()}, 110)
+    want, cpu_caches = spec32.prefill(_to(p32, "cpu"), host, 110)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tok = torch.as_tensor(prompts[:, 100:101])
+    got, _ = spec32.decode_step(p32, tok.to(cuda), caches, 100)
+    want, _ = spec32.decode_step(_to(p32, "cpu"), tok, cpu_caches, 100)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
@@ -463,12 +540,12 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(lse[live], want_lse[live], atol=1e-4, rtol=1e-5)
     before = flash_attention.backward_launches
     tc_before = flash_attention.tensor_core_backward_launches
-    got = flash_attention_backward(q, k, v, o, lse, do, **opts)
+    got = flash_attention_backward(q, k, v, lse, do, **opts)
     assert flash_attention.backward_launches == before + 1
     assert (flash_attention.tensor_core_backward_launches - tc_before
             == int(_tensor_core_bwd(dtype, d)))
     torch.cuda.synchronize()
-    want = flash_attention_backward_torch(q, k, v, o, lse, do, **opts)
+    want = flash_attention_backward_torch(q, k, v, lse, do, **opts)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= tol
@@ -486,12 +563,12 @@ def test_tensor_core_kernels_run_first_in_a_fresh_thread(cuda, backward):
 
     q, k, v = _qkv(1, 25, 5, 256, 64, torch.bfloat16, cuda)
     do = _qkv(1, 25, 5, 256, 64, torch.bfloat16, cuda, seed=1)[0]
-    o, lse = flash_attention_lse(q, k, v, sm_scale=0.125, window=100)
+    _, lse = flash_attention_lse(q, k, v, sm_scale=0.125, window=100)
     torch.cuda.synchronize()
 
     def run():
         if backward:
-            return flash_attention_backward(q, k, v, o, lse, do, sm_scale=0.125, window=100)
+            return flash_attention_backward(q, k, v, lse, do, sm_scale=0.125, window=100)
         return (flash_attention(q, k, v, sm_scale=0.125, window=100),)
 
     out = {}
@@ -515,10 +592,37 @@ def test_tensor_core_backward_is_deterministic(cuda, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
     q, k, v = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=3)
     do = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=4)[0]
-    o, lse = flash_attention_lse(q, k, v, sm_scale=128 ** -0.5, window=300)
-    first = flash_attention_backward(q, k, v, o, lse, do, sm_scale=128 ** -0.5, window=300)
-    second = flash_attention_backward(q, k, v, o, lse, do, sm_scale=128 ** -0.5, window=300)
+    _, lse = flash_attention_lse(q, k, v, sm_scale=128 ** -0.5, window=300)
+    first = flash_attention_backward(q, k, v, lse, do, sm_scale=128 ** -0.5, window=300)
+    second = flash_attention_backward(q, k, v, lse, do, sm_scale=128 ** -0.5, window=300)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                  (64, torch.float16), (96, torch.bfloat16)],
+                         ids=["bf16-D64", "bf16-D128", "f16-D64", "bf16-D96-cuda-cores"])
+def test_flash_backward_holds_when_the_keys_share_a_mean(cuda, case):
+    """Queries and keys that share a mean 32 times their spread (a deep
+    decoder layer's are ~13): dq's error in the shared direction, which the
+    exact dq lacks, stays out (D summed from the recomputed P dP, and on
+    tensor cores the rounded dS's row sums taken out), so every gradient is
+    within 1e-2 of its max |g| of the plain version."""
+    d, dtype = case
+    rng = np.random.default_rng(7)
+
+    def shared(h):
+        x = 0.25 * (32 * rng.standard_normal((1, h, 1, d)) + rng.standard_normal((1, h, 384, d)))
+        return torch.as_tensor(x, device=cuda).to(dtype)
+
+    q, k = shared(4), shared(2)
+    v, do = (torch.as_tensor(rng.standard_normal((1, h, 384, d)), device=cuda).to(dtype)
+             for h in (2, 4))
+    opts = dict(sm_scale=d ** -0.5)
+    _, lse = flash_attention_lse(q, k, v, **opts)
+    got = flash_attention_backward(q, k, v, lse, do, **opts)
+    want = flash_attention_backward_torch(q, k, v, lse, do, **opts)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-2
 
 
 def test_flash_output_keeps_its_gradient_on_the_card(cuda):

@@ -105,7 +105,7 @@ def test_gradient_matches_jax_autodiff_of_the_reference(case):
     o, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
     _close(o, want[0], tol)
     assert lse.shape == (b * hq, s) and lse.dtype == torch.float32
-    got = flash_attention_backward_torch(q, k, v, o, lse, do, **kw)
+    got = flash_attention_backward_torch(q, k, v, lse, do, **kw)
     for g, w, t in zip(got, want[1:], (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
         _close(g, w, tol)
@@ -176,6 +176,69 @@ def test_function_saves_the_forward_lse_and_calls_both_halves(monkeypatch):
                      ("flash_attention_backward", 0.1, 64, 20.0)]
 
 
+def _shared_mean_inputs(ratio: float):
+    """bf16 q, k, v, d out whose queries and keys share a mean ``ratio``
+    times their spread per head, as a deep decoder layer's do, with a
+    softmax that is neither flat nor one-hot."""
+    rng = np.random.default_rng(12)
+    b, hq, hkv, s, d = 1, 4, 2, 256, 64
+
+    def shared(h):
+        return 0.25 * (ratio * rng.standard_normal((b, h, 1, d))
+                       + rng.standard_normal((b, h, s, d)))
+
+    arrays = (shared(hq), shared(hkv), rng.standard_normal((b, hkv, s, d)),
+              rng.standard_normal((b, hq, s, d)))
+    j = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    return j, [_torch(x) for x in j]
+
+
+def _dense_dq(q, k, v, do, delta, dtype=None):
+    """dq of causal attention with each row's D given (and, with ``dtype``,
+    dS rounded to it before dq = dS K), densely in f32."""
+    group = q.shape[1] // k.shape[1]
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    c = qf @ kf.transpose(-1, -2) * 0.125
+    ok = torch.ones(c.shape[-2:], dtype=torch.bool).tril()
+    p = torch.softmax(torch.where(ok, c, -torch.inf), dim=-1)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    if dtype is not None:
+        ds = ds.to(dtype).float()
+    return ds @ kf * 0.125
+
+
+@pytest.mark.parametrize("ratio", [12.0, 32.0])
+def test_gradient_holds_when_the_keys_share_a_mean(ratio):
+    """Without a softcap sum_j dS_ij = 0, so a component that every key
+    shares leaves the exact dq, but any error in that sum reaches dq times
+    it. At a shared mean 12 and 32 times the spread (whisper-small's last
+    decoder layer: ~13): D taken as dO . o from the 16-bit output, as
+    FlashAttention-2 does, and dS rounded to 16 bits without the
+    tensor-core epilogue's correction, each leave the bf16 gate (2e-2 of
+    max |g|) of JAX's autodiff at 32; the plain backward (D from P dP), the
+    Function and the tensor-core algorithm stay well inside at both."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _shared_mean_inputs(ratio)
+    want = [torch.from_numpy(np.asarray(w, np.float32))
+            for w in jax_grads(jq, jk, jv, jdo, causal=True, window=None, softcap=None)[1:]]
+    err = lambda g, w: float((g.float() - w).abs().max() / w.abs().max())  # noqa: E731
+    out, lse = flash_attention_lse(q, k, v, sm_scale=0.125)
+    d_rounded = (do.float() * out.float()).sum(-1, keepdim=True)
+    d_exact = (do.float() * flash_attention_torch(q.float(), k.float(), v.float(), sm_scale=0.125)
+               ).sum(-1, keepdim=True)
+    if ratio > 16:
+        assert err(_dense_dq(q, k, v, do, d_rounded), want[0]) > 2e-2
+        assert err(_dense_dq(q, k, v, do, d_exact, torch.bfloat16), want[0]) > 2e-2
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    by_function = torch.autograd.grad(flash_attention(*leaves, sm_scale=0.125), leaves, do)
+    plain = flash_attention_backward_torch(q, k, v, lse, do, sm_scale=0.125)
+    tensor_core = _rounded_grads(q, k, v, do, dtype=torch.bfloat16)
+    for grads in (by_function, plain, tensor_core):
+        for g, w in zip(grads, want):
+            assert err(g, w) <= 1e-2
+
+
 def test_lse_is_the_row_log_sum_exp():
     """lse = log sum_j exp(s_ij) over the unmasked scores of each row."""
     _, (q, k, v, _) = _inputs(1, 4, 2, 128, 64)
@@ -190,10 +253,10 @@ def test_lse_is_the_row_log_sum_exp():
 
 def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None):
     """dq, dk, dv (f32) as the tensor-core backward kernels compute them: f32
-    scores, P = exp(c - lse) from the forward's f32 lse, D = rowsum(dO o)
-    with o in the input type, and P and dS rounded to ``dtype`` before the
-    products that take them (dV = P^T dO, dK = dS^T Q, dQ = dS K); every
-    sum in f32."""
+    scores, P = exp(c - lse) from the forward's f32 lse, D = rowsum(P dP),
+    and P and dS rounded to ``dtype`` before the products that take them
+    (dV = P^T dO, dK = dS^T Q, dQ = dS K), then, without a softcap, dq_i
+    less the rounded dS's row sum times k_i; every sum in f32."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     scale = d ** -0.5
@@ -211,16 +274,19 @@ def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None
         ok &= pos[:, None] - pos[None, :] < window
     lse = torch.logsumexp(torch.where(ok, c, -torch.inf), dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(c - lse), 0.0)
-    o = (p @ vf).to(dtype).float()
-    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o).sum(-1, keepdim=True))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     if softcap is not None:
         ds = ds * (1.0 - (c / softcap) ** 2)
     p16, ds16 = p.to(dtype).float(), ds.to(dtype).float()
+    dq = ds16 @ kf
+    if softcap is None:
+        dq = dq - ds16.sum(-1, keepdim=True) * kf
 
     def group_sum(x):
         return x.reshape(b, hq // group, group, s, d).sum(dim=2)
 
-    return (ds16 @ kf * scale, group_sum(ds16.transpose(-1, -2) @ qf) * scale,
+    return (dq * scale, group_sum(ds16.transpose(-1, -2) @ qf) * scale,
             group_sum(p16.transpose(-1, -2) @ dof))
 
 

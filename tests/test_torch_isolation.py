@@ -2,7 +2,8 @@
 
 Subprocesses with ``jax`` and ``repro`` made unimportable run the port's
 main path, its reduced serve path and its reduced training path on the CPU,
-for the dense family and for the DeepSeek (MoE) family;
+for the dense family, the DeepSeek (MoE) family, the SSM and hybrid
+families and the vision-language and audio families;
 the compiler API and the compile daemon (``python -m repro_torch.daemon``
 serving one compile) run with ``torch`` unimportable too. A scan of the
 port's sources, ``chip_smoke.py`` and the port's examples finds no import of
@@ -258,6 +259,38 @@ def test_ssm_and_hybrid_serve_and_train_run_without_jax_or_the_jax_package():
     assert proc.stdout.count("served 2 requests / 6 tokens") == 2
     assert proc.stdout.count("done: 2 steps") == 2
     assert "SSM_HYBRID_PATH_OK" in proc.stdout
+
+
+_VLM_AUDIO_PATH = r'''
+import sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+from repro_torch.launch import serve, train
+for arch in ("paligemma-3b", "whisper-small"):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--requests", "2", "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+    with tempfile.TemporaryDirectory() as ckpt:
+        report = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--steps", "2", "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt])
+    assert report.steps_done == 2 and report.restarts == 0, report
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("VLM_AUDIO_PATH_OK")
+'''
+
+
+def test_vlm_and_audio_serve_and_train_run_without_jax_or_the_jax_package():
+    """The vision-language and audio families' paths: paligemma-3b
+    (prefix embeddings, prefix-LM, decode past its cache) and whisper-small
+    (encoder, cross-attention), each served and trained."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _VLM_AUDIO_PATH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("served 2 requests / 6 tokens") == 2
+    assert proc.stdout.count("done: 2 steps") == 2
+    assert "VLM_AUDIO_PATH_OK" in proc.stdout
 
 
 _SOURCES = sorted(

@@ -241,13 +241,21 @@ def test_serve_main_on_the_cpu(capsys):
     assert out.count("batch done") == 2 and "served 3 requests / 9 tokens" in out
 
 
-# ---------------------------------------------------------- what raises
+# ------------------------------------------------------- every config
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if get_config(n).family
-                                  not in ("dense", "moe", "ssm", "hybrid")])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="MLA, MoE and the other LM families"):
-        build_model(get_config(name).reduced())
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_every_arch_builds_with_the_reference_param_count(name):
+    """``build_model`` builds each of the ten configs (reduced): its own
+    init has the reference's parameter count and dtype, and an unknown
+    family raises as the reference's does."""
+    jspec = jbuild_model(jget_config(name).reduced())
+    want = jparam_count(jax.eval_shape(jspec.init, jax.random.PRNGKey(0)))
+    spec = build_model(get_config(name).reduced())
+    params = spec.init(0, "cpu")
+    assert spec.param_count(params) == param_count(params) == want
+    assert params["embed"].dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(spec.cfg, family="nope"))
 
 
 def test_mla_premap_and_offset_prefill_raise(tmp_path, capsys):
