@@ -20,8 +20,9 @@ sLSTM) at full width and depth; serve and train paligemma-3b (its text
 prefill's MQA attention at D 256 in the flash kernel, prefix-LM training on
 the scores path) and whisper-small (its decoder's self-attention in the
 flash kernels, the encoder and cross-attention on the scores path) at full
-width and depth — and fails (non-zero exit, no result line) if any phase
-fails:
+width and depth; train qwen3-0.6b sharded on torch.distributed meshes and
+deepseek-moe-16b's cut expert-parallel, several ranks on the one card — and
+fails (non-zero exit, no result line) if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/cgra_sim.cu``,
@@ -204,6 +205,25 @@ fails:
    step (448 rows, padded to 512), hold the forward (2e-2) and, through
    the padded path under autograd, the tensor-core backward against their
    plain versions (as phase 9 holds qwen3-0.6b's training layers).
+17. sharded training on torch.distributed (``sharding/``, ``launch/mesh.py``,
+   ``make_sharded_state`` / ``make_sharded_step``): (a) this process alone
+   over NCCL on a 1x1 mesh from ``make_debug_mesh``, qwen3-0.6b at full
+   width (bf16, remat) under the rules' shardings takes 2 steps of 4 x 2048
+   from phase 10's state and batches; its losses and updated parameters
+   equal ``make_step``'s (else within 2e-2 of max |x|, said so), >= 28
+   tensor-core flash forward and backward launches a step. (b) several
+   ranks on the one card over gloo with CUDA tensors (this script run as
+   ``--sharded-rank`` processes, NCCL taking one rank per card): qwen3-0.6b
+   on a 2x2 ("data", "model") mesh, global batch 4 x 2048, its attention on
+   each rank's 8 q / 4 kv heads, 2 steps; then deepseek-moe-16b's 4-layer
+   cut on a 1x2 mesh (experts over "model"; batch 2 x 2048, the data axis
+   of size 1, so the capacity drops are the one-rank run's), 2 steps. Each
+   rank's global losses and grad norms within 2e-2 of the one-rank run's,
+   the update of each of its parameter shards (final minus initial) within
+   SH_UPDATE_TOL of the one-rank run's update of the same slice in norm
+   (||d - d_1|| / ||d_1||: a shard left unchanged reads 1), its flash
+   launches >= the layers a step, all tensor-core; step times and peak
+   memory per rank.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -217,6 +237,7 @@ import gc
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -256,11 +277,18 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ops import cgra_run, compile_program  # noqa: E402
 from repro_torch.kernels.ref import cgra_sim_reference  # noqa: E402
 from repro_torch.launch.serve import decode_start, prefill_batch, serve_batch  # noqa: E402
-from repro_torch.launch.train import make_state, make_step  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.train import (  # noqa: E402
+    make_sharded_state, make_sharded_step, make_state, make_step,
+)
 from repro_torch.models import attention, build_model, moe  # noqa: E402
 from repro_torch.models import build as lm  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig, build_opt_shardings  # noqa: E402
 from repro_torch.runtime import FaultConfig, run_training  # noqa: E402
+from repro_torch.sharding import P, batch_shardings, param_shardings  # noqa: E402
+from repro_torch.sharding.spmd import (  # noqa: E402
+    Spmd, full_tensor, mesh_device, reshard, spec_of,
+)
 from repro_torch.tree import leaves, leaves_with_paths, unflatten  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 rate
@@ -434,6 +462,20 @@ WH_TRAIN_STEPS = 2
 # whisper-small's decoder self-attention at the flash kernel's prefill (MHA,
 # D 64): the 224 rows padded to 256 by flash_attention_padded
 WH_SHAPE = (SERVE_BATCH, 12, 12, 256, 64)
+# phase 17: sharded training (qwen3-0.6b as phase 10; deepseek-moe-16b as
+# phase 14's 4-layer cut, at batch 2 so that two ranks fit on one card)
+SH_STEPS = 2
+SH_MESH = (2, 2)                 # (b): 4 ranks over gloo on the one card
+SH_DS_MESH = (1, 2)              # (b): expert parallelism over "model"
+SH_DS_BATCH = 2
+SH_TOL = 2e-2                    # of max |x|, between layouts (bf16 sums)
+# each parameter shard's 2-step update against the one-rank run's, in norm:
+# ||d - d_1|| / ||d_1||; an unchanged shard reads 1. Measured on an H100
+# 80GB HBM3 at 700 W: qwen3-0.6b on 2x2 at most 0.103 (a q_norm, which starts
+# at zero: flipped signs of near-zero gradient components), deepseek-moe-16b
+# on 1x2 at most 0.173 (an expert's w_gate); medians 0.052 and 0.037
+SH_UPDATE_TOL = 0.35
+SH_RANK_TIMEOUT_S = 420          # a rank's process group and the join
 
 
 def log(*parts) -> None:
@@ -2641,6 +2683,307 @@ def phase_vlm_audio() -> tuple[int, int, float, float]:
     return serve_launches + fwd, bwd, max(pg_err, wh_err), wh_bwd_err
 
 
+# ----------------------------------------------------------------- phase 17
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_cfg(arch: str, layers: int | None):
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def sharded_opt_cfg() -> AdamWConfig:
+    # phase 10's: the training CLI's defaults for its 8 steps
+    return AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(10, TRAIN_STEPS // 20))
+
+
+def sharded_run(cfg, mesh, batch: int, steps: int, *, keep_init: bool = False) -> dict:
+    """``steps`` of ``make_sharded_step`` on this rank's shards of ``mesh``
+    from seed 0 (phase 10's state) and batches 0.. of ``batch`` x 2048:
+    the placed state, global losses and grad norms, per-step times, flash
+    launch counts and peak memory; with ``keep_init``, this rank's initial
+    parameter shards (f32, on the host) by path."""
+    device = mesh_device(mesh)
+    params = build_model(cfg).init(0, device)
+    spec = build_model(cfg, mesh=mesh)
+    p_sh = param_shardings(params, mesh)
+    o_sh = build_opt_shardings(params, p_sh, mesh)
+    data = SyntheticLM(cfg, batch, TRAIN_SEQ, seed=0)
+    b_sh = batch_shardings(data.host_batch(0), mesh, ("data",))
+    opt_cfg = sharded_opt_cfg()
+    state = make_sharded_state(opt_cfg, params, p_sh, o_sh, compression=False)
+    del params
+    init = ({p: d.to_local().float().cpu() for p, d in leaves_with_paths(state["params"])}
+            if keep_init else None)
+    step = make_sharded_step(spec, opt_cfg, mesh, p_sh, o_sh, b_sh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        inputs = data.batch_at(i, shardings=b_sh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return dict(state=state, init=init, losses=losses, norms=norms, times=times,
+                counts=flash_counts(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                p_specs={p: sh.spec for p, sh in leaves_with_paths(p_sh)})
+
+
+def plain_run(cfg, batch: int, steps: int) -> dict:
+    """The same steps through make_state / make_step on one device."""
+    spec = build_model(cfg)
+    opt_cfg = sharded_opt_cfg()
+    data = SyntheticLM(cfg, batch, TRAIN_SEQ, seed=0)
+    state = make_state(spec, opt_cfg, 0, compression=False, device="cuda")
+    step = make_step(spec, opt_cfg, compression=False)
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        inputs = data.batch_at(i, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return dict(params=state["params"], losses=losses, norms=norms, times=times)
+
+
+def leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (0 for an all-zero want equal to got)."""
+    d = (got.float() - want.float()).abs().max().item()
+    m = want.float().abs().max().item()
+    return d / m if m else d
+
+
+def same_or_close(label: str, got: list, want: list) -> tuple[bool, float]:
+    """Whether two lists of numbers are equal, else their worst relative
+    difference, which must be within SH_TOL."""
+    if got == want:
+        return True, 0.0
+    err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+    check(err <= SH_TOL, f"{label}: {got} vs {want} ({err:.3g} > {SH_TOL})")
+    return False, err
+
+
+def save_params(params, path: Path) -> None:
+    """Whole parameters (a DTensor gathered) to ``path`` on the host."""
+    torch.save({p: full_tensor(t).detach().cpu() for p, t in leaves_with_paths(params)},
+               path)
+
+
+def update_errors(state_params, init: dict, path: Path, spmd) -> dict:
+    """Each parameter shard's update on this rank against the one-rank
+    run's update of the same slice (its whole final parameters saved at
+    ``path``; both runs start from ``init``): ||d - d_1|| / ||d_1||, d the
+    final minus the initial shard, in f32 on the host. A shard left
+    unchanged reads 1; where d_1 is 0, any d reads inf."""
+    want = torch.load(path, map_location="cpu")
+    out = {}
+    for p, d in leaves_with_paths(state_params):
+        w = reshard(want[p].float(), P(), spec_of(d), spmd)   # a slice: no communication
+        d_1 = (w - init[p]).norm().item()
+        off = (d.to_local().float().cpu() - w).norm().item()
+        out[p] = off / d_1 if d_1 else (0.0 if off == 0 else float("inf"))
+    return out
+
+
+def sharded_rank(args: dict) -> None:
+    """One rank of phase 17 (b): ``python3 chip_smoke.py --sharded-rank
+    <json>``. Joins the gloo group, trains on its shards of the mesh with
+    CUDA tensors, holds its final parameter shards against the one-rank
+    run's and writes its report as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{args['port']}",
+                            rank=args["rank"], world_size=args["world"],
+                            timeout=datetime.timedelta(seconds=SH_RANK_TIMEOUT_S))
+    try:
+        mesh = make_debug_mesh(*args["mesh"], device_type="cuda")
+        cfg = sharded_cfg(args["arch"], args["layers"])
+        run = sharded_run(cfg, mesh, args["batch"], SH_STEPS, keep_init=True)
+        errs = update_errors(run["state"]["params"], run["init"], Path(args["want"]),
+                             Spmd(mesh))
+        where = max(errs, key=errs.get)
+        report = dict(rank=args["rank"], losses=run["losses"], norms=run["norms"],
+                      times=run["times"], counts=run["counts"], peak_gib=run["peak_gib"],
+                      update_err=errs[where], update_err_leaf=where,
+                      update_err_median=statistics.median(errs.values()),
+                      update_leaves=len(errs))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(args["out"]).write_text(json.dumps(report))
+
+
+def run_sharded_ranks(label: str, arch: str, layers, mesh_shape, batch: int,
+                      want: Path) -> list:
+    """Phase 17 (b): ``mesh_shape`` ranks of this script on the one card
+    over gloo; their reports (a rank that fails or outlives
+    SH_RANK_TIMEOUT_S fails the phase, every rank killed)."""
+    out_dir = ROOT / "build" / "phase17"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    world = mesh_shape[0] * mesh_shape[1]
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        args = dict(rank=rank, world=world, port=port, mesh=list(mesh_shape), arch=arch,
+                    layers=layers, batch=batch, want=str(want),
+                    out=str(out_dir / f"{label}_rank{rank}.json"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+             json.dumps(args)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failures = []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                output, _ = proc.communicate(timeout=SH_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                failures.append(f"rank {rank} outlived {SH_RANK_TIMEOUT_S} s")
+                continue
+            if proc.returncode:
+                failures.append(f"rank {rank} exit {proc.returncode}:\n{output[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not failures, f"{label}: " + "\n".join(failures))
+    return [json.loads((out_dir / f"{label}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def check_rank_reports(label: str, reports: list, layers: int, want: dict) -> tuple:
+    """Every rank's losses and grad norms (global, the same on every rank)
+    within SH_TOL of the one-rank run's, each parameter shard's update
+    within SH_UPDATE_TOL of the one-rank run's in norm, >= ``layers``
+    tensor-core forward and backward launches a step; returns (forward,
+    backward) launches summed over the ranks."""
+    fwd = bwd = 0
+    for r in reports:
+        same_or_close(f"{label} rank {r['rank']} losses", r["losses"], want["losses"])
+        same_or_close(f"{label} rank {r['rank']} grad norms", r["norms"], want["norms"])
+        check(r["update_err"] <= SH_UPDATE_TOL, f"{label} rank {r['rank']}: the update of "
+              f"{r['update_err_leaf']} is {r['update_err']:.3g} of the one-rank run's off "
+              f"in norm (tol {SH_UPDATE_TOL})")
+        f, tc, b, tc_b = r["counts"]
+        check(min(tc, tc_b) >= layers * SH_STEPS and f == tc and b == tc_b,
+              f"{label} rank {r['rank']}: flash launches {r['counts']}, want >= "
+              f"{layers} tensor-core forward and backward a step")
+        fwd += f
+        bwd += b
+        log(f"  {label} rank {r['rank']}: losses {r['losses']} (one rank {want['losses']}), "
+            f"grad norms {[round(x, 4) for x in r['norms']]}, step times "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in r['times'])} ms, peak "
+            f"{r['peak_gib']:.2f} GiB, flash {r['counts']}, updates of its "
+            f"{r['update_leaves']} parameter shards off the one-rank run's by "
+            f"{r['update_err_median']:.4g} in norm at the median, {r['update_err']:.4g} at "
+            f"worst ({r['update_err_leaf']}; tol {SH_UPDATE_TOL})")
+    return fwd, bwd
+
+
+def phase_sharded(smi: str) -> tuple[int, int]:
+    """Sharded training on torch.distributed (see the module docstring,
+    item 17). Returns the flash forward and backward launches of its
+    sharded runs (every rank's)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    out_dir = ROOT / "build" / "phase17"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    # (a) world size 1 over NCCL, against phase 10's make_step
+    plain = plain_run(cfg, TRAIN_BATCH, SH_STEPS)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SH_RANK_TIMEOUT_S))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        run = sharded_run(cfg, mesh, TRAIN_BATCH, SH_STEPS)
+    finally:
+        dist.destroy_process_group()
+    fwd, tc, bwd, tc_bwd = run["counts"]
+    check(min(tc, tc_bwd) >= cfg.num_layers * SH_STEPS and fwd == tc and bwd == tc_bwd,
+          f"(a) flash launches {run['counts']}: want >= {cfg.num_layers} tensor-core "
+          "forward and backward a step")
+    losses_equal, loss_err = same_or_close("(a) losses", run["losses"], plain["losses"])
+    params_equal, worst, where = True, 0.0, ""
+    for (p, d), w in zip(leaves_with_paths(run["state"]["params"]), leaves(plain["params"])):
+        local = d.to_local()
+        if not torch.equal(local, w):
+            params_equal = False
+            err = leaf_err(local, w)
+            if err > worst:
+                worst, where = err, p
+    check(worst <= SH_TOL, f"(a) parameters {worst:.3g} of max |x| off at {where}")
+    sharded_specs = sum(any(e is not None for e in sp) for sp in run["p_specs"].values())
+    log(f"  (a) {TRAIN_ARCH} at full width on a 1x1 mesh over NCCL ({sharded_specs} of "
+        f"{len(run['p_specs'])} leaves with a sharded spec, every axis of size 1): "
+        f"{SH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}; losses {run['losses']} vs "
+        f"make_step's {plain['losses']} ({'equal' if losses_equal else f'{loss_err:.3g} off'}); "
+        f"updated parameters {'bit-equal' if params_equal else f'within {worst:.3g} of max |x| (worst {where})'}; "
+        f"flash {run['counts']}; step times {', '.join(f'{t * 1e3:.1f}' for t in run['times'])} ms "
+        f"(make_step {', '.join(f'{t * 1e3:.1f}' for t in plain['times'])} ms); peak "
+        f"{run['peak_gib']:.2f} GiB; {smi}")
+    want_qwen = out_dir / "qwen_params.pt"
+    save_params(run["state"]["params"], want_qwen)
+    want = dict(losses=run["losses"], norms=run["norms"])
+    sh_fwd, sh_bwd = fwd, bwd
+    del run, plain, mesh
+    free_device("phase 17 (a)")
+
+    # (b) several ranks on the one card over gloo, CUDA tensors
+    t0 = time.perf_counter()
+    reports = run_sharded_ranks("qwen", TRAIN_ARCH, None, SH_MESH, TRAIN_BATCH, want_qwen)
+    f, b = check_rank_reports(f"(b) {TRAIN_ARCH} on {SH_MESH[0]}x{SH_MESH[1]}", reports,
+                              cfg.num_layers, want)
+    sh_fwd, sh_bwd = sh_fwd + f, sh_bwd + b
+    log(f"  (b) {TRAIN_ARCH}: {len(reports)} ranks over gloo on one card, global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_BATCH // SH_MESH[0]} x {TRAIN_SEQ} a rank), "
+        f"wall {time.perf_counter() - t0:.1f} s (process start and build included); {smi}")
+
+    ds_cfg = sharded_cfg(DS_ARCH, DS_TRAIN_LAYERS)
+    plain = plain_run(ds_cfg, SH_DS_BATCH, SH_STEPS)
+    want_ds = out_dir / "deepseek_params.pt"
+    save_params(plain["params"], want_ds)
+    log(f"  one rank: {DS_ARCH} at {DS_TRAIN_LAYERS} layers, {SH_STEPS} steps of "
+        f"{SH_DS_BATCH} x {TRAIN_SEQ} through make_step: losses {plain['losses']}, step "
+        f"times {', '.join(f'{t * 1e3:.1f}' for t in plain['times'])} ms")
+    want = dict(losses=plain["losses"], norms=plain["norms"])
+    del plain
+    free_device(f"{DS_ARCH} one-rank run")
+    t0 = time.perf_counter()
+    reports = run_sharded_ranks("deepseek", DS_ARCH, DS_TRAIN_LAYERS, SH_DS_MESH,
+                                SH_DS_BATCH, want_ds)
+    f, b = check_rank_reports(f"(b) {DS_ARCH} on {SH_DS_MESH[0]}x{SH_DS_MESH[1]} (EP)",
+                              reports, DS_TRAIN_LAYERS, want)
+    sh_fwd, sh_bwd = sh_fwd + f, sh_bwd + b
+    log(f"  (b) {DS_ARCH}: {len(reports)} ranks, experts over \"model\" (32 a rank), "
+        f"batch {SH_DS_BATCH} x {TRAIN_SEQ} on each (data axis of size 1), wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"  phase 17 flash launches: forward {sh_fwd}, backward {sh_bwd} (every rank); "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return sh_fwd, sh_bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -2740,6 +3083,12 @@ def main() -> int:
         f"prefill shapes, f32 checks, {PG_TRAIN_STEPS} and {WH_TRAIN_STEPS} training steps")
     va_fwd, va_bwd, va_err, va_bwd_err = phase_vlm_audio()
 
+    log(f"[17] sharded training on torch.distributed: {TRAIN_ARCH} at full width, "
+        f"{SH_STEPS} steps of make_sharded_step on a 1x1 mesh over NCCL (against "
+        f"make_step), on {SH_MESH[0]}x{SH_MESH[1]} over gloo (4 ranks on the one card); "
+        f"{DS_ARCH} at {DS_TRAIN_LAYERS} layers on {SH_DS_MESH[0]}x{SH_DS_MESH[1]} (EP)")
+    sh_fwd, sh_bwd = phase_sharded(smi)
+
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
         "route": "cuda",
@@ -2757,7 +3106,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd,
+        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd + sh_fwd,
         "max_abs_err": max(flash_err, ds_err, hy_err, va_err),
         "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"],
@@ -2769,7 +3118,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": bwd_launches + ds_bwd + hy_bwd + va_bwd,
+        "launches": bwd_launches + ds_bwd + hy_bwd + va_bwd + sh_bwd,
         "max_abs_err": max(bwd_err, va_bwd_err),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -2784,4 +3133,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-rank":
+        sharded_rank(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

@@ -18,12 +18,16 @@ kernels    lowering of a mapping to per-step tables, and batched execution
 configs    the architecture registry (plain data)
 models     the LM model zoo's dense family: layers, GQA attention, the
            decoder-LM assembly (with the training loss) and ``build_model``
-optim      AdamW and int8 gradient compression with error feedback
-data       synthetic and memmap token pipelines
-checkpoint async, atomic, versioned checkpoints
-runtime    the fault-tolerant training runner
+optim      AdamW (with ZeRO-1 moment shardings) and int8 gradient
+           compression with error feedback (and its int8 all-gather)
+data       synthetic and memmap token pipelines, sharded batches
+checkpoint async, atomic, versioned checkpoints, restored onto any mesh
+runtime    the fault-tolerant training runner and elastic re-meshing
+sharding   the sharding rules (parameter paths -> PartitionSpecs -> DTensor
+           placements) and local-shard compute on torch.distributed
 launch     the serving and training entry points (``launch/serve.py``,
-           ``launch/train.py``)
+           ``launch/train.py``, its sharded step) and meshes
+           (``launch/mesh.py``)
 tree       walking parameter trees of dicts and lists in ``jax.tree`` order
 interop    builds this package's objects from the plain data of a mapping,
            or from an LM parameter tree of numpy arrays, made elsewhere, and

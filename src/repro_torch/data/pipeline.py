@@ -10,8 +10,9 @@ Two sources behind one interface:
     the train examples.
 
 Host batches come from numpy exactly as the reference makes them, so they
-are bit-identical to its batches; ``batch_at`` places them on a device.
-The reference's sharded placement waits for the sharding slice.
+are bit-identical to its batches; ``batch_at`` places them on a device, or,
+given shardings (``sharding.batch_shardings``), as DTensors: each rank
+builds the global batch from the same seed and keeps its shard.
 """
 
 from __future__ import annotations
@@ -24,8 +25,18 @@ import torch
 from ..models.api import ArchConfig
 
 
-def _on(host: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+def _on(host: dict[str, np.ndarray], device, shardings=None) -> dict:
+    """The host batch on ``device``, or placed under ``shardings`` (one
+    NamedSharding, or a dict of them by key) on its mesh's device."""
+    if shardings is None:
+        return {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+    from ..sharding.spmd import mesh_device, place
+
+    out = {}
+    for k, v in host.items():
+        sh = shardings[k] if isinstance(shardings, dict) else shardings
+        out[k] = place(torch.as_tensor(v, device=mesh_device(sh.mesh)), sh)
+    return out
 
 
 @dataclass
@@ -60,8 +71,8 @@ class SyntheticLM:
             ) * 0.1
         return out
 
-    def batch_at(self, step: int, device="cuda") -> dict[str, torch.Tensor]:
-        return _on(self.host_batch(step), device)
+    def batch_at(self, step: int, device="cuda", shardings=None) -> dict:
+        return _on(self.host_batch(step), device, shardings)
 
 
 @dataclass
@@ -87,5 +98,5 @@ class MemmapLM:
         chunk = chunk.reshape(self.batch, self.seq + 1) % self.cfg.vocab
         return {"tokens": chunk[:, :-1], "labels": chunk[:, 1:].astype(np.int32)}
 
-    def batch_at(self, step: int, device="cuda") -> dict[str, torch.Tensor]:
-        return _on(self.host_batch(step), device)
+    def batch_at(self, step: int, device="cuda", shardings=None) -> dict:
+        return _on(self.host_batch(step), device, shardings)

@@ -1,1 +1,2 @@
-"""Launchers: ``serve`` (batched prefill + decode of the dense LM family)."""
+"""Launchers: ``serve`` (batched prefill + decode), ``train`` (training,
+and its sharded step) and ``mesh`` (DeviceMesh construction)."""

@@ -19,8 +19,14 @@ cross-attention and the recurrent mixers are plain torch ops.
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \\
       --steps 2 --batch 2 --seq 2048
 
-Weights are random, from a ``torch.Generator`` seeded by ``--seed``. The
-reference's sharded data and parameters wait for the sharding slice.
+Weights are random, from a ``torch.Generator`` seeded by ``--seed``.
+
+On a mesh (``launch/mesh.py``), :func:`make_sharded_state` places the state
+under the rules' shardings and :func:`make_sharded_step` is the counterpart
+of the reference's ``jax.jit(train_step, in_shardings=(p_sh, o_sh, b_sh),
+out_shardings=(p_sh, o_sh, None))``: every rank of the default process
+group calls it on its shards. The CLI trains on one device, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from ..optim import (
     init_residual,
 )
 from ..runtime import FaultConfig, run_training
-from ..tree import leaves, unflatten
+from ..tree import leaves, tree_map, unflatten
 
 
 def make_state(spec, opt_cfg, seed: int, *, compression: bool, device="cuda") -> dict:
@@ -76,6 +82,111 @@ def make_step(spec, opt_cfg, *, compression: bool):
         return new_state, out
 
     return step
+
+
+def make_sharded_state(opt_cfg, params, p_sh, o_sh, *, compression: bool) -> dict:
+    """The state of :func:`make_state` placed on the mesh: ``params`` (the
+    whole tree, the same on every rank: the same seed, or a tree carried in)
+    under ``p_sh``, zero moments under ``o_sh`` (ZeRO-1), step 0 replicated
+    and the compression residual placed like the params."""
+    from ..sharding.spmd import place
+
+    placed = unflatten(params, [place(w, sh) for w, sh in zip(leaves(params), leaves(p_sh))])
+    opt = adamw_init(params, opt_cfg)
+    state = {"params": placed, "opt": {
+        "m": unflatten(params, [place(z, sh) for z, sh in zip(leaves(opt["m"]),
+                                                               leaves(o_sh["m"]))]),
+        "v": unflatten(params, [place(z, sh) for z, sh in zip(leaves(opt["v"]),
+                                                               leaves(o_sh["v"]))]),
+        "step": place(opt["step"], o_sh["step"]),
+    }}
+    if compression:
+        state["residual"] = unflatten(params, [
+            place(r, sh) for r, sh in zip(leaves(init_residual(params)), leaves(p_sh))])
+    return state
+
+
+def sharded_grads(spec, params, batch: dict, spmd):
+    """This rank's (loss, metrics, gradients): the loss of its batch shard
+    under ``spec`` (built on the mesh), and each parameter's gradient shard,
+    in leaf order, of the global loss (the mean of the ranks' losses over
+    the data axes), summed over the axes the leaf is replicated on."""
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.spmd import spec_of, sum_replicated
+
+    flat = leaves(params)
+    locs = [d.to_local().detach().requires_grad_() for d in flat]
+    placed = unflatten(params, [
+        DTensor.from_local(t, d.device_mesh, d.placements, run_check=False,
+                           shape=d.shape, stride=d.stride())
+        for t, d in zip(locs, flat)])
+    local_batch = {k: v.to_local() if isinstance(v, DTensor) else v
+                   for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, metrics = spec.loss_fn(placed, local_batch)
+        grads = torch.autograd.grad(loss / spmd.world, locs)
+    specs = [spec_of(d) for d in flat]
+    return loss.detach(), metrics, sum_replicated(list(grads), specs, spmd)
+
+
+def make_sharded_step(spec, opt_cfg, mesh, p_sh, o_sh, b_sh, *, compression: bool = False,
+                      data_axes=("data",), model_axis: str = "model"):
+    """``step(state, batch) -> (new_state, metrics)`` on placed state.
+
+    ``spec`` comes from ``build_model(cfg, mesh=mesh, ...)``; ``state`` is
+    :func:`make_sharded_state`'s (DTensors under ``p_sh`` and ``o_sh``),
+    ``batch`` a dict of DTensors under ``b_sh`` (``batch_at(step,
+    shardings=b_sh)``). Each rank takes the gradient of its local loss
+    (seeded with ``1 / world``), sums each leaf's gradient over the axes it
+    is replicated on, optionally compresses it with error feedback (on the
+    whole tensor, as the reference's step compresses its global gradient),
+    and runs AdamW on its shards. Metrics, the same on every rank: loss, ce,
+    aux (and mtp) averaged over the data axes, grad_norm and lr. On a 1x1
+    mesh the step computes what :func:`make_step` computes, op for op."""
+    from ..sharding.spmd import Spmd, all_reduce
+
+    spmd = Spmd(mesh, data_axes=data_axes, model_axis=model_axis)
+
+    def step(state, batch):
+        loss, metrics, grads = sharded_grads(spec, state["params"], batch, spmd)
+        new_state, om = sharded_update(state, grads, opt_cfg, spmd, compression=compression)
+        dsize = spmd.size(spmd.data_axes)
+        out = {k: all_reduce(v.detach(), spmd, spmd.data_axes) / dsize
+               for k, v in {"loss": loss, **metrics}.items()}
+        return new_state, {**out, **om}
+
+    return step
+
+
+@torch.no_grad()
+def sharded_update(state: dict, grads: list, opt_cfg, spmd, *, compression: bool):
+    """The placed state after one update from this rank's gradient shards
+    (``sharded_grads``' list, in the params' layout): optional compression
+    with error feedback, each gradient made whole first (the reference
+    quantises its global gradient in 256-blocks), then AdamW with ZeRO-1
+    moments. Returns (new_state, {grad_norm, lr})."""
+    from torch.distributed.tensor import DTensor
+
+    from ..optim import adamw_update_sharded
+    from ..sharding.spmd import full_tensor, reshard, spec_of
+
+    new_state = {}
+    if compression:
+        specs = [spec_of(d) for d in leaves(state["params"])]
+        whole = [reshard(g, sp, (), spmd) for g, sp in zip(grads, specs)]
+        deq, res = compress_grads_with_feedback(
+            unflatten(state["params"], whole),
+            tree_map(lambda r: full_tensor(r, spmd), state["residual"]))
+        grads = [reshard(g, (), sp, spmd) for g, sp in zip(leaves(deq), specs)]
+        new_state["residual"] = unflatten(state["residual"], [
+            DTensor.from_local(reshard(x, (), sp, spmd).contiguous(), r.device_mesh,
+                               r.placements, run_check=False, shape=r.shape,
+                               stride=r.stride())
+            for x, sp, r in zip(leaves(res), specs, leaves(state["residual"]))])
+    new_params, new_opt, om = adamw_update_sharded(
+        unflatten(state["params"], grads), state["opt"], state["params"], opt_cfg, spmd)
+    return {"params": new_params, "opt": new_opt, **new_state}, om
 
 
 def main(argv=None):

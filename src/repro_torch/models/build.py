@@ -17,9 +17,12 @@ in the backward. Caches are lists of per-layer
 :class:`KVCache` or :class:`MLACache`, updated in place. ``lm_loss`` is the
 training loss.
 
-Single device only: the reference's expert-parallel ``shard_map`` island
-waits for the sharding slice (ROADMAP queue 1, "Sharding and the
-distributed substrate").
+Given a mesh, ``build_model`` runs the same loss on each rank's shards:
+``lm_loss``'s ``tp`` (``models/sharded.py``'s ``TensorParallel``; None on
+one device) takes the placed weights to local ones, sums the row-parallel
+partial outputs over the model axis, looks the embedding up and takes the
+cross-entropy over a vocab sharded on that axis, and runs the reference's
+expert-parallel ``shard_map`` island for the MoE FFN.
 """
 
 from __future__ import annotations
@@ -66,16 +69,22 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device) -> dict
 def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, *, kind: str, window: int | None = None,
                 prefix_len: int | None = None,
-                cache: KVCache | MLACache | None = None):
+                cache: KVCache | MLACache | None = None, tp=None):
     """One pre-norm block; returns (x, cache, aux), aux the MoE block's
-    load-balance loss (0 for a dense block)."""
+    load-balance loss (0 for a dense block). With ``tp``, ``p`` holds this
+    rank's placed shards."""
+    attn_cfg = cfg
+    if tp is not None:
+        p, attn_cfg = tp.block(p), tp.attn_cfg
     h = rms_norm(x, p["attn_norm"])
     if cfg.mla is not None:
         a, new_cache = mla_attention(p["attn"], h, positions, cfg, cache=cache)
     else:
-        a, new_cache = gqa_attention(p["attn"], h, positions, cfg,
+        a, new_cache = gqa_attention(p["attn"], h, positions, attn_cfg,
                                      window=window, cache=cache,
                                      prefix_len=prefix_len)
+    if tp is not None:
+        a = tp.reduce_attn(a)
     if cfg.sandwich_norm:
         a = rms_norm(a, p["post_attn_norm"])
     x = x + a
@@ -83,13 +92,16 @@ def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
     h = rms_norm(x, p["ffn_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "moe":
-        f, aux = moe_ffn(p["moe"], h, cfg)
-    elif cfg.mlp_kind == "gelu":
-        f = gelu_mlp(p["mlp"], h)
-    elif cfg.mlp_kind == "geglu":
-        f = geglu_mlp(p["mlp"], h)
+        f, aux = (moe_ffn if tp is None else tp.moe)(p["moe"], h, cfg)
     else:
-        f = swiglu_mlp(p["mlp"], h)
+        if cfg.mlp_kind == "gelu":
+            f = gelu_mlp(p["mlp"], h)
+        elif cfg.mlp_kind == "geglu":
+            f = geglu_mlp(p["mlp"], h)
+        else:
+            f = swiglu_mlp(p["mlp"], h)
+        if tp is not None:
+            f = tp.reduce_mlp(f)
     if cfg.sandwich_norm:
         f = rms_norm(f, p["post_ffn_norm"])
     return x + f, new_cache, aux
@@ -112,30 +124,30 @@ def layer_windows(cfg: ArchConfig, num_layers: int, offset: int = 0) -> np.ndarr
 
 
 def _block_out(p: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ArchConfig, kind: str, window: int, prefix_len: int | None):
+               cfg: ArchConfig, kind: str, window: int, prefix_len: int | None, tp):
     """A block without a cache, as :func:`apply_stack` checkpoints it:
     (x, aux), so that the aux loss keeps its gradient through the
     recompute."""
     out, _, aux = block_apply(p, x, positions, cfg, kind=kind, window=window,
-                              prefix_len=prefix_len)
+                              prefix_len=prefix_len, tp=tp)
     return out, aux
 
 
 def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
                 positions: torch.Tensor, cfg: ArchConfig, *, kind: str,
-                caches=None, prefix_len: int | None = None):
+                caches=None, prefix_len: int | None = None, tp=None):
     """A plain loop over the layers of one stack; returns (x, aux summed
     over the layers, caches).
 
     With ``cfg.remat``, grad mode on and no caches, each layer is a
     non-reentrant ``torch.utils.checkpoint``: the backward runs its forward
     again (the flash kernel included) and uses only that recompute's saved
-    tensors."""
+    tensors (with ``tp``, its weights' gathers too)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.remat and caches is None and torch.is_grad_enabled():
         for i, p_l in enumerate(stack):
             x, aux_l = checkpoint(_block_out, p_l, x, positions, cfg, kind,
-                                  int(windows[i]), prefix_len, use_reentrant=False,
+                                  int(windows[i]), prefix_len, tp, use_reentrant=False,
                                   preserve_rng_state=False)
             aux = aux + aux_l
         return x, aux, None
@@ -143,7 +155,7 @@ def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
     for i, p_l in enumerate(stack):
         x, nc, aux_l = block_apply(p_l, x, positions, cfg, kind=kind,
                                    window=int(windows[i]), prefix_len=prefix_len,
-                                   cache=None if caches is None else caches[i])
+                                   cache=None if caches is None else caches[i], tp=tp)
         aux = aux + aux_l
         new_caches.append(nc)
     return x, aux, (new_caches if caches is not None else None)
@@ -191,8 +203,8 @@ def _stacks(cfg: ArchConfig):
     return out
 
 
-def _embed(params, cfg, tokens):
-    x = params["embed"][tokens]
+def _embed(params, cfg, tokens, tp=None):
+    x = params["embed"][tokens] if tp is None else tp.embed(params["embed"], tokens)
     if cfg.embed_scale:
         x = (x.float() * cfg.d_model**0.5).to(x.dtype)
     return x
@@ -205,14 +217,14 @@ def _unembed(params, cfg, x):
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
-               prefix_embeds=None):
+               prefix_embeds=None, tp=None):
     """Shared trunk: embeddings -> stacks -> (hidden states, aux summed over
     the layers, caches). On a pass of more than one token the meta tokens,
     then ``prefix_embeds`` [b, p, d_model], are prepended (during decode
     they already sit in the cache); with ``cfg.prefix_lm`` attention is
     bidirectional over everything prepended."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     if params.get("meta_tokens") is not None and s > 1:
         meta = params["meta_tokens"][None].expand(b, cfg.num_meta_tokens, cfg.d_model)
         x = torch.cat([meta.to(x.dtype), x], dim=1)
@@ -229,14 +241,14 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
             params[stack_name], layer_windows(cfg, n_layers, offset), x,
             positions, cfg, kind=kind,
             caches=caches.get(stack_name) if caches is not None else None,
-            prefix_len=prefix_len,
+            prefix_len=prefix_len, tp=tp,
         )
         aux = aux + aux_s
         new_caches[stack_name] = nc
     return x, aux, (new_caches if caches is not None else None)
 
 
-def lm_loss(params, cfg: ArchConfig, batch):
+def lm_loss(params, cfg: ArchConfig, batch, tp=None):
     """Mean next-token cross-entropy (with the reference's z-loss) of
     ``batch["tokens"]`` against ``batch["labels"]``, plus ``mtp_weight``
     times the multi-token-prediction loss (``cfg.mtp``: the token after
@@ -244,25 +256,30 @@ def lm_loss(params, cfg: ArchConfig, batch):
     the MoE aux loss; returns (loss, metrics) with metrics ``ce``, ``aux``
     (0 without MoE layers) and, with MTP, ``mtp``. A vlm batch's
     ``prefix_embeds`` go before the tokens; the rows of any prefix are
-    dropped before the head."""
+    dropped before the head. With ``tp``, ``params`` are this rank's placed
+    shards and ``batch`` its batch shard; the loss is the mean over this
+    rank's tokens, its logits this rank's vocab columns."""
+    ce = cross_entropy_loss
+    if tp is not None:
+        params, ce = tp.top(params), tp.cross_entropy
     tokens, labels = batch["tokens"], batch["labels"]
     x, aux, _ = lm_forward(params, cfg, tokens,
-                           prefix_embeds=batch.get("prefix_embeds"))
+                           prefix_embeds=batch.get("prefix_embeds"), tp=tp)
     strip = x.shape[1] - tokens.shape[1]
     if strip:
         x = x[:, strip:]
     logits = _unembed(params, cfg, x)
-    loss = cross_entropy_loss(logits, labels)
+    loss = ce(logits, labels)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp:
         h = x[:, :-1]
-        nxt = _embed(params, cfg, tokens[:, 1:])
+        nxt = _embed(params, cfg, tokens[:, 1:], tp)
         m_in = torch.cat([h, nxt], dim=-1) @ params["mtp_proj"]
         m_in = rms_norm(m_in, params["mtp_norm"])
         pos = torch.arange(m_in.shape[1], device=m_in.device)
-        m_out = block_apply(params["mtp_block"], m_in, pos, cfg, kind="dense")[0]
+        m_out = block_apply(params["mtp_block"], m_in, pos, cfg, kind="dense", tp=tp)[0]
         mtp_logits = _unembed(params, cfg, m_out)
-        mtp_loss = cross_entropy_loss(mtp_logits[:, :-1], labels[:, 2:])
+        mtp_loss = ce(mtp_logits[:, :-1], labels[:, 2:])
         loss = loss + cfg.mtp_weight * mtp_loss
         metrics["mtp"] = mtp_loss
     return loss + aux, metrics

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN (DeepSeek-style), on one device.
+"""Mixture-of-Experts FFN (DeepSeek-style), on one device or expert-parallel.
 
 The PyTorch counterpart of the JAX package's ``src/repro/models/moe.py``.
 Routing: top-k over router scores (softmax or sigmoid per config), optional
@@ -20,9 +20,13 @@ their top-k order, one add at a time in the input dtype, as the reference's
 scatter-add does. No float atomics are involved, so a forward gives the
 same bits every run, and no step reads a value back to the host.
 
-The expert-parallel form of the reference (experts sharded over a mesh
-axis, one ``psum``) waits for the sharding slice (ROADMAP queue 1,
-"Sharding and the distributed substrate").
+Expert parallelism (the reference's ``shard_map`` island): with
+``model_axis`` and ``mesh`` (a ``sharding.spmd.Spmd``), ``params`` holds
+this rank's ``E/shards`` experts (and its share of the shared experts'
+width), the shard index is this rank's coordinate over ``model_axis`` in
+the reference's axis order, capacity comes from the local tokens, and the
+output is all-reduced over the EP ranks. Over one shard the ops are those
+of the single-device path.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.spmd import all_reduce
 from .layers import dense_param
 
 
@@ -99,8 +104,13 @@ def _dispatch_slots(expert_ids: torch.Tensor, capacity: int):
     return slots, slots < capacity
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN of ``x`` [b, s, d]; returns (out [b, s, d], aux)."""
+def moe_ffn(params: dict, x: torch.Tensor, cfg, *, model_axis=None,
+            mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of ``x`` [b, s, d]; returns (out [b, s, d], aux).
+
+    With ``model_axis`` (an axis name, or a tuple of them: experts over
+    every axis) and ``mesh``, ``params`` holds this rank's experts and the
+    output is summed over those axes' ranks."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -108,18 +118,22 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
     top_idx, gates, aux = _routing(params, x_flat, cfg)      # [T, k]
 
     e, k = m.num_experts, m.top_k
+    shard = mesh.index(model_axis) if model_axis is not None else 0
+    e_loc = params["expert_up"].shape[0]                     # E/shards
     capacity = max(8, int(t * k * m.capacity_factor) // e)
     flat_e = top_idx.reshape(-1)                             # [T*k]
     flat_gate = gates.reshape(-1)
     flat_tok = torch.arange(t * k, device=x.device) // k
     slots, in_cap = _dispatch_slots(flat_e, capacity)
-    lin = flat_e * capacity + slots                           # unique where kept
+    # kept here: within capacity and one of this shard's experts
+    kept = in_cap & ((flat_e // e_loc) == shard)
+    lin = (flat_e % e_loc) * capacity + slots                 # unique where kept
 
     # dispatch: kept rows into their slots, dropped ones into the spare row
-    spare = e * capacity
+    spare = e_loc * capacity
     buf = x.new_zeros((spare + 1, d)).index_copy(
-        0, torch.where(in_cap, lin, spare), x_flat[flat_tok])
-    buf = buf[:spare].view(e, capacity, d)
+        0, torch.where(kept, lin, spare), x_flat[flat_tok])
+    buf = buf[:spare].view(e_loc, capacity, d)
 
     # batched expert SwiGLU
     g = F.silu(torch.bmm(buf, params["expert_gate"]))
@@ -128,15 +142,19 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
 
     # combine: gather back (dropped: row 0 at weight 0, as the reference),
     # weight by gate, add each token's k contributions in a fixed order
-    weight = torch.where(in_cap, flat_gate, 0.0)
-    contrib = (h_flat[torch.where(in_cap, lin, 0)]
+    weight = torch.where(kept, flat_gate, 0.0)
+    contrib = (h_flat[torch.where(kept, lin, 0)]
                * weight[:, None].to(x.dtype)).view(t, k, d)
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
 
     if m.num_shared > 0:
+        # shared expert(s): d_ff sharded like the experts => partial sums
         sg = F.silu(x_flat @ params["shared_gate"])
         su = x_flat @ params["shared_up"]
         out = out + (sg * su) @ params["shared_down"]
+
+    if model_axis is not None:
+        out = all_reduce(out, mesh, model_axis)
     return out.reshape(b, s, d), aux

@@ -23,12 +23,23 @@ def _tokens(batch):
     return batch["tokens"] if isinstance(batch, dict) else batch
 
 
-def build_model(cfg: ArchConfig) -> ModelSpec:
+def build_model(cfg: ArchConfig, *, mesh=None, data_axes=("data",),
+                model_axis: str = "model") -> ModelSpec:
     """The surface of ``cfg``'s model: ``init(seed, device)``,
     ``loss_fn(params, batch) -> (loss, metrics)``, ``prefill(params,
     batch, cache_len)`` (tokens, or a dict with ``tokens``, and for the
     audio family ``frames``), ``decode_step(params, token, caches, pos)``
-    and ``make_caches(params, batch, cache_len)``."""
+    and ``make_caches(params, batch, cache_len)``.
+
+    With a ``mesh`` (a ``DeviceMesh`` this rank is in), ``loss_fn`` takes
+    placed parameters (DTensors under ``sharding.param_shardings``) and this
+    rank's batch shard, and returns this rank's loss
+    (``models/sharded.py``); the dense, MoE and vlm families run tensor-
+    and expert-parallel as the reference's ``build_model(cfg, mesh=...)``
+    does, the others on whole weights. Serving on a mesh is not ported:
+    its prefill and decode raise."""
+    if mesh is not None:
+        return _sharded(build_model(cfg), mesh, data_axes, model_axis)
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         def make_caches(params, batch, cache_len):
@@ -77,6 +88,34 @@ def build_model(cfg: ArchConfig) -> ModelSpec:
             param_count=param_count,
         )
     raise ValueError(f"unknown family {fam}")
+
+
+def _sharded(spec: ModelSpec, mesh, data_axes, model_axis) -> ModelSpec:
+    """``spec`` with its loss on this rank's shards of ``mesh``: the decoder
+    LM's tensor- and expert-parallel, any other family's on whole weights
+    (each gathered over its sharded axes; the data-parallel form, as the
+    reference's builders of those families take no mesh)."""
+    from ..sharding.rules import P
+    from ..sharding.spmd import Spmd, to_spec
+    from ..tree import tree_map
+    from .sharded import TensorParallel
+
+    spmd = Spmd(mesh, data_axes=data_axes, model_axis=model_axis)
+    cfg = spec.cfg
+    if cfg.family in ("dense", "moe", "vlm"):
+        tp = TensorParallel(cfg, spmd)
+        loss_fn = lambda p, b: lm.lm_loss(p, cfg, b, tp=tp)  # noqa: E731
+    else:
+        loss_fn = lambda p, b: spec.loss_fn(  # noqa: E731
+            tree_map(lambda d: to_spec(d, P(), spmd), p), b)
+
+    def unported(*_):
+        raise NotImplementedError("serving on a mesh is not ported (ROADMAP queue, "
+                                  "\"Sharded serving\"); build the model without a mesh")
+
+    return ModelSpec(cfg=cfg, init=spec.init, loss_fn=loss_fn, prefill=unported,
+                     decode_step=unported, make_caches=spec.make_caches,
+                     param_count=spec.param_count)
 
 
 def param_count(params) -> int:

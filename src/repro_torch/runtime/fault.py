@@ -11,10 +11,13 @@ The PyTorch counterpart of the JAX package's ``src/repro/runtime/fault.py``:
   * stragglers — per-step wall time is tracked with an EMA; steps slower than
     ``straggler_factor`` x EMA increment a counter surfaced in the report,
     and an optional callback gets them.
-  * after ``max_restarts`` consecutive failures the runner calls
-    ``on_topology_change`` if given, else raises. The reference's elastic
-    re-meshing (``runtime/elastic.py``) and restores onto new shardings wait
-    for the sharding slice.
+  * node failure — after ``max_restarts`` consecutive failures the runner
+    treats it as a topology change and calls ``on_topology_change`` if
+    given (else raises): the hook rebuilds the mesh from the surviving ranks
+    (``runtime/elastic.py``) and returns ``(state, shardings)``, the state
+    restored and placed on the new mesh; later restores use those
+    shardings. ``shardings`` (a tree of NamedShardings like the state)
+    places every restore as DTensors.
 
 A step that raises is caught and retried, so a caller that must not hide a
 failure checks ``report.restarts``.
@@ -41,7 +44,7 @@ class FaultConfig:
     straggler_factor: float = 3.0
     straggler_grace_steps: int = 10
     on_straggler: Callable[[int, float, float], None] | None = None
-    on_topology_change: Callable[[], Any] | None = None
+    on_topology_change: Callable[[], Any] | None = None   # elastic hook
 
 
 @dataclass
@@ -60,6 +63,7 @@ def run_training(
     cfg: FaultConfig,
     *,
     state_like: Any | None = None,
+    shardings: Any | None = None,
     fail_injector: Callable[[int], None] | None = None,
 ) -> tuple[Any, RunReport]:
     """Run ``num_steps`` with checkpoint/restart + straggler accounting.
@@ -76,7 +80,7 @@ def run_training(
 
     last = latest_step(cfg.ckpt_dir)
     if last is not None:
-        state = restore(cfg.ckpt_dir, last, state_like or init_state)
+        state = restore(cfg.ckpt_dir, last, state_like or init_state, shardings)
         start_step = last
     ema = None
     step = start_step
@@ -111,14 +115,15 @@ def run_training(
             report.restarts += 1
             if restarts > cfg.max_restarts:
                 if cfg.on_topology_change is not None:
-                    state = cfg.on_topology_change()
+                    # elastic path: rebuild mesh/state and keep going
+                    state, shardings = cfg.on_topology_change()
                     restarts = 0
                     continue
                 raise
             ckpt.wait()
             last = latest_step(cfg.ckpt_dir)
             if last is not None:
-                state = restore(cfg.ckpt_dir, last, state_like or init_state)
+                state = restore(cfg.ckpt_dir, last, state_like or init_state, shardings)
                 step = last
             else:
                 state = init_state

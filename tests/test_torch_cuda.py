@@ -714,3 +714,74 @@ def test_reduced_bf16_training_step_runs_the_tensor_core_backward(cuda):
         losses.append(float(metrics["loss"]))
     assert flash_attention.tensor_core_backward_launches - tc == 2 * cfg.num_layers
     assert np.isfinite(losses).all()
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """This process alone over NCCL, and a 1x1 ("data", "model") mesh."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_debug_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_on_a_one_rank_mesh_is_make_step(nccl_mesh):
+    """make_sharded_step on a 1x1 NCCL mesh under the rules' shardings
+    (reduced qwen3-0.6b in bf16 at head dim 64: the tensor-core kernels)
+    computes what make_step computes, bit for bit, over 2 steps."""
+    from repro_torch.optim import build_opt_shardings
+    from repro_torch.sharding import batch_shardings, param_shardings
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype=torch.bfloat16,
+                              head_dim=64)
+    opt_cfg = AdamWConfig(total_steps=2, warmup_steps=1)
+    data = SyntheticLM(cfg, 2, 128, seed=0)
+    plain = build_model(cfg)
+    state = train.make_state(plain, opt_cfg, 0, compression=False, device="cuda")
+    step = train.make_step(plain, opt_cfg, compression=False)
+    params = plain.init(0, "cuda")
+    spec = build_model(cfg, mesh=nccl_mesh)
+    p_sh = param_shardings(params, nccl_mesh, min_shard_size=4)
+    o_sh = build_opt_shardings(params, p_sh, nccl_mesh)
+    b_sh = batch_shardings(data.host_batch(0), nccl_mesh, ("data",))
+    sh_state = train.make_sharded_state(opt_cfg, params, p_sh, o_sh, compression=False)
+    sh_step = train.make_sharded_step(spec, opt_cfg, nccl_mesh, p_sh, o_sh, b_sh)
+    tc = flash_attention.tensor_core_backward_launches
+    for i in range(2):
+        state, m = step(state, data.batch_at(i, "cuda"))
+        sh_state, sm = sh_step(sh_state, data.batch_at(i, shardings=b_sh))
+        assert torch.equal(m["loss"], sm["loss"]), (i, m["loss"], sm["loss"])
+    assert flash_attention.tensor_core_backward_launches - tc == 4 * cfg.num_layers
+    for a, b in zip(leaves(state["params"]), leaves(sh_state["params"])):
+        assert torch.equal(a, b.to_local())
+
+
+def test_placed_state_round_trips_on_the_card(nccl_mesh):
+    """place / full_tensor / a checkpoint restored under shardings, on CUDA
+    shards of the NCCL mesh."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.sharding import NamedSharding, P
+    from repro_torch.sharding.spmd import full_tensor, place
+
+    x = torch.randn(8, 6, device="cuda")
+    sh = NamedSharding(nccl_mesh, P("data", "model"))
+    d = place(x, sh)
+    assert d.to_local().is_cuda and torch.equal(full_tensor(d), x)
+    with tempfile.TemporaryDirectory() as ckpt:
+        save(ckpt, 1, {"x": d})
+        back = restore(ckpt, 1, {"x": x}, {"x": sh})
+    assert torch.equal(full_tensor(back["x"]), x)

@@ -293,6 +293,75 @@ def test_vlm_and_audio_serve_and_train_run_without_jax_or_the_jax_package():
     assert "VLM_AUDIO_PATH_OK" in proc.stdout
 
 
+_SHARDED_PATH = r'''
+import sys, tempfile, datetime
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import restore, save
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import data_axes_of, make_debug_mesh
+from repro_torch.launch.train import make_sharded_state, make_sharded_step
+from repro_torch.models import build_model
+from repro_torch.optim import (
+    AdamWConfig, build_opt_shardings, compress, compressed_psum_mean, decompress,
+)
+from repro_torch.runtime import FaultConfig, remesh, reshard_state, run_training
+from repro_torch.sharding import AbstractMesh, batch_shardings, param_shardings
+
+dist.init_process_group("gloo", init_method="tcp://localhost:%d", rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=120))
+for arch in ("qwen3-0.6b", "deepseek-moe-16b"):
+    cfg = get_config(arch).reduced()
+    mesh = make_debug_mesh(1, 1, device_type="cpu")
+    assert data_axes_of(mesh) == ("data",)
+    params = build_model(cfg).init(0, "cpu")
+    spec = build_model(cfg, mesh=mesh)
+    p_sh = param_shardings(params, mesh, min_shard_size=4)
+    o_sh = build_opt_shardings(params, p_sh, mesh)
+    data = SyntheticLM(cfg, 2, 16, seed=0)
+    b_sh = batch_shardings(data.host_batch(0), mesh, ("data",))
+    state = make_sharded_state(AdamWConfig(), params, p_sh, o_sh, compression=True)
+    step = make_sharded_step(spec, AdamWConfig(), mesh, p_sh, o_sh, b_sh, compression=True)
+    with tempfile.TemporaryDirectory() as ckpt:
+        state, report = run_training(step, state, lambda s: data.batch_at(s, shardings=b_sh),
+                                     2, FaultConfig(ckpt_dir=ckpt, ckpt_every=1))
+        assert report.steps_done == 2 and report.restarts == 0, report
+        new = remesh([0], model_parallel=2, device_type="cpu")
+        back = restore(ckpt, 2, {"params": params}, reshard_state({"params": params}, new))
+        assert all(torch.equal(a.to_local(), b.to_local()) for a, b in
+                   zip(back["params"]["dense_stack"][0].values(),
+                       state["params"]["dense_stack"][0].values())
+                   if isinstance(a, torch.Tensor))
+x = torch.arange(600, dtype=torch.float32)
+assert torch.equal(compressed_psum_mean(x, "data", mesh), decompress(*compress(x), (600,)))
+param_shardings(params, AbstractMesh((16, 16), ("data", "model")))
+dist.destroy_process_group()
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("SHARDED_PATH_OK")
+'''
+
+
+def test_sharded_path_runs_without_jax_or_the_jax_package():
+    """The sharding slice's modules (rules, meshes, elastic re-meshing,
+    ZeRO-1, the int8 all-gather, sharded batches and checkpoints, the
+    sharded step with compression) on a one-rank gloo group."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _SHARDED_PATH % port], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SHARDED_PATH_OK" in proc.stdout
+
+
 _SOURCES = sorted(
     [p for p in (ROOT / "src" / "repro_torch").rglob("*")
      if p.suffix in (".py", ".cu", ".cuh")]
