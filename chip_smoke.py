@@ -21,7 +21,9 @@ prefill's MQA attention at D 256 in the flash kernel, prefix-LM training on
 the scores path) and whisper-small (its decoder's self-attention in the
 flash kernels, the encoder and cross-attention on the scores path) at full
 width and depth; train qwen3-0.6b sharded on torch.distributed meshes and
-deepseek-moe-16b's cut expert-parallel, several ranks on the one card — and
+deepseek-moe-16b's cut expert-parallel, several ranks on the one card;
+serve qwen3-0.6b sharded, run the dry-run and hold a training step
+against its roofline — and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
@@ -167,8 +169,9 @@ fails (non-zero exit, no result line) if any phase fails:
    launches (pass and recompute) and 32 tensor-core backward launches a
    step; a fifth step profiled. Then xlstm-125m (12 layers, d 768, 4
    heads, mLSTM / sLSTM alternating, vocab 50304, 112.7 M parameters) the
-   same way without attention: served, timed and profiled, 2 training
-   steps. Its f32 state carry: within 1e-4 after a 32-token prompt, and
+   same way without attention: served, timed and profiled at full depth,
+   2 training steps of a 4-layer cut (its step is host-bound: one launch
+   per op of the recurrence). Its f32 state carry: within 1e-4 after a 32-token prompt, and
    after the 2048-token prompt within 10x of the rounding floor (the same
    prefill with every embedding moved by one ulp), since its random-weight
    recurrence amplifies f32 rounding ~1e5-fold over 2048 steps.
@@ -224,6 +227,32 @@ fails (non-zero exit, no result line) if any phase fails:
    (||d - d_1|| / ||d_1||: a shard left unchanged reads 1), its flash
    launches >= the layers a step, all tensor-core; step times and peak
    memory per rank.
+18. sharded serving, the dry-run and the roofline (``build_model(cfg,
+   mesh=...)``'s ``prefill`` / ``decode_step``, ``launch/dryrun.py``,
+   ``roofline/``): (a) phase 7's requests (qwen3-0.6b, 8 in batches of 4,
+   prompt 2048, 32 tokens) served by the sharded spec on a 1x1 mesh over
+   NCCL through ``serve_batch``: tokens and teacher-forced logits
+   bit-equal to the unsharded spec's, >= 28 tensor-core flash launches a
+   prefill; then 4 ranks on 2x2 over gloo on the one card
+   (``--sharded-rank``) with caches of 16384 slots, so that each layer's
+   cache lies as the reference places the stacked one (L 28 over "data",
+   the slots over "model": each rank holds 14 layers' 8192 slots, checked):
+   in f32 at 2 layers, the prefill's and 8 teacher-forced decode steps'
+   logits within 1e-4 of max |logit| of the one-rank run; at full depth in
+   bf16 the first batch of requests served greedily (each 2x2 decode step
+   is some 280 gloo collectives through the host), printed beside the
+   one-rank run's tokens with the first step where they part and the
+   logit gap there;
+   >= 28 tensor-core flash launches a prefill on every rank. (b) ``python
+   -m repro_torch.launch.dryrun`` in subprocesses with no card visible,
+   started with the phase: qwen3-0.6b train_4k on 16x16 and 2x16x16,
+   deepseek-v3-671b decode_32k on 2x16x16; each ``ok`` with FLOPs > 0 and
+   a useful-FLOP ratio in (0, 1], its row printed. (c) phase 10's step
+   (make_step, 4 x 2048, bf16, remat) counted by the dry-run on a 1x1
+   fake mesh and run 5 times on the card: the median of steps 2-5 must
+   not beat the count's roofline bound, and the predicted peak must be
+   within 0.7-1.3x of the card's over the state's start; the bound over
+   the measured time is the whole step's roofline share.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -272,7 +301,7 @@ from repro_torch.checkpoint import restore  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_backward, flash_attention_backward_torch,
-    flash_attention_lse, flash_attention_padded, flash_attention_torch,
+    flash_attention_flops, flash_attention_lse, flash_attention_padded, flash_attention_torch,
 )
 from repro_torch.kernels.ops import cgra_run, compile_program  # noqa: E402
 from repro_torch.kernels.ref import cgra_sim_reference  # noqa: E402
@@ -287,7 +316,7 @@ from repro_torch.optim import AdamWConfig, build_opt_shardings  # noqa: E402
 from repro_torch.runtime import FaultConfig, run_training  # noqa: E402
 from repro_torch.sharding import P, batch_shardings, param_shardings  # noqa: E402
 from repro_torch.sharding.spmd import (  # noqa: E402
-    Spmd, full_tensor, mesh_device, reshard, spec_of,
+    Spmd, full_tensor, mesh_device, place, reshard, spec_of,
 )
 from repro_torch.tree import leaves, leaves_with_paths, unflatten  # noqa: E402
 
@@ -429,6 +458,7 @@ HY_TRAIN_STEPS = 4
 XL_ARCH = "xlstm-125m"
 XL_PARAMS = 112_730_880
 XL_TRAIN_STEPS = 2
+XL_TRAIN_LAYERS = 4       # its training cut (serving stays at full depth)
 # xLSTM's f32 state carry at 1e-4: after a prompt this long (rounding of
 # ~1e-7 grows to ~2e-5 of a logit by position 32 and ~9e-3 by 2048, in the
 # JAX package's model as in this one, measured on a CPU host); over the
@@ -476,6 +506,20 @@ SH_TOL = 2e-2                    # of max |x|, between layouts (bf16 sums)
 # on 1x2 at most 0.173 (an expert's w_gate); medians 0.052 and 0.037
 SH_UPDATE_TOL = 0.35
 SH_RANK_TIMEOUT_S = 420          # a rank's process group and the join
+# phase 18: sharded serving (phase 7's requests) and the roofline against
+# the card. On 2x2 the caches hold 16384 slots: L 28 on data 2, so their
+# layers go over "data" and their slots over "model"
+SV_MESH = (2, 2)
+SV_CACHE_LEN = 16384
+SV_F32_LAYERS = 2
+SV_F32_STEPS = 8
+SV_F32_TOL = 1e-4                # of max |logit|, f32, 2x2 against one rank
+SV_RANK_BATCHES = 1              # the 2x2 ranks' bf16 batches (gloo-bound, ~40 s each)
+DRY_CELLS = (("qwen3-0.6b", "train_4k", False), ("qwen3-0.6b", "train_4k", True),
+             ("deepseek-v3-671b", "decode_32k", True))
+DRY_TIMEOUT_S = 300
+ROOF_STEPS = 5                   # phase 10's step on the card; median of steps 2..5
+PEAK_BAND = (0.7, 1.3)           # predicted peak over the card's, for that step
 
 
 def log(*parts) -> None:
@@ -897,15 +941,17 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
 
 
 def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray,
-                          frames: torch.Tensor | None = None) -> list:
+                          frames: torch.Tensor | None = None,
+                          cache_len: int | None = None) -> list:
     """Prefill logits, then each decode step's logits with ``forced``
     tokens at ``serve_batch``'s positions; an audio model encodes
-    ``frames`` (default: zeros, as ``serve_batch`` does)."""
+    ``frames`` (default: zeros, as ``serve_batch`` does). The caches hold
+    ``cache_len`` slots (default: the serve CLI's)."""
     batch = prefill_input(spec, prompts)
     if frames is not None:
         batch = dict(batch, frames=frames)
     s = prompts.shape[1]
-    logits, caches = spec.prefill(params, batch, cache_len_for(s))
+    logits, caches = spec.prefill(params, batch, cache_len or cache_len_for(s))
     out = [logits]
     for i in range(forced.shape[1]):
         tok = torch.as_tensor(forced[:, i:i + 1], device="cuda")
@@ -1026,20 +1072,12 @@ def phase_serve() -> int:
 
 # ------------------------------------------------------------------ phase 8
 
-def causal_pairs(s_len: int, window: int | None = None) -> int:
-    """(query, key) pairs a causal mask leaves, with ``window`` (q - k <
-    window) if given."""
-    if window is None or window >= s_len:
-        return s_len * (s_len + 1) // 2
-    return window * (window + 1) // 2 + (s_len - window) * window
-
-
 def flash_bound(shape, itemsize: int, window: int | None = None) -> tuple[float, str]:
     """Least time for the card at ``shape`` (causal, ``window``): the FLOPs
     of the two products over the unmasked pairs, over the bf16 tensor-core
     peak, or q, k, v and out read or written once over HBM bandwidth."""
     b, hq, hkv, s_len, d = shape
-    flops = 4 * b * hq * d * causal_pairs(s_len, window)
+    flops = flash_attention_flops(b, hq, s_len, d, window=window)
     nbytes = 2 * (b * hq + b * hkv) * s_len * d * itemsize
     by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1067,7 +1105,7 @@ def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
     plain_ms = time_ms(lambda: flash_attention_torch(q, k, v, window=window), 3)
     bound_ms, bound_by = flash_bound(shape, q.element_size(), window)
     b, hq, hkv, s_len, d = shape
-    flops = 4 * b * hq * d * causal_pairs(s_len, window)
+    flops = flash_attention_flops(b, hq, s_len, d, window=window)
     sdpa = (f" in turns with scaled_dot_product_attention "
             f"{', '.join(f'{t:.4f}' for t in library_ms)} ms" if library_ms else "")
     log(f"  {label} {list(shape)} bf16 causal{f' window {window}' if window else ''}, "
@@ -1367,13 +1405,15 @@ def check_counts(counts, steps: int, layers: int, what: str) -> None:
 
 def profile_step(spec, opt_cfg, state, batch) -> None:
     """One training step under torch.profiler: host time, the device's busy
-    share, the top kernels, and each flash kernel's time and launches."""
+    share, the top kernels, and each flash kernel's time and launches. Only
+    the device's activity is recorded: the kernels are all it reads, and
+    sorting a hymba-1.5b step's operator events as well took ~80 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step = make_step(spec, opt_cfg, compression=False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         new_state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -1490,7 +1530,7 @@ def flash_bwd_bound(shape, itemsize: int) -> tuple[float, str]:
     or q, k, v, d out and lse read and dq, dk, dv written once over HBM
     bandwidth."""
     b, hq, hkv, s_len, d = shape
-    flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
+    flops = flash_attention_flops(b, hq, s_len, d, backward=True)
     nbytes = (3 * b * hq + 4 * b * hkv) * s_len * d * itemsize + b * hq * s_len * 4
     by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2549,7 +2589,8 @@ def phase_ssm_hybrid() -> tuple[int, int, float]:
     free_device(f"{XL_ARCH} serving")
     family_f32(cfg, seed=20)
     free_device(f"{XL_ARCH} f32 check")
-    xl_counts = family_train(cfg, XL_TRAIN_STEPS)
+    xl_counts = family_train(dataclasses.replace(cfg, num_layers=XL_TRAIN_LAYERS),
+                             XL_TRAIN_STEPS)
     check(xl_counts == (0, 0, 0, 0), f"{XL_ARCH} training launched flash attention")
     free_device(f"{XL_ARCH} training")
     log(f"  phase 15 flash launches: forward {serve_launches + fwd} (serving "
@@ -2813,6 +2854,11 @@ def sharded_rank(args: dict) -> None:
                             timeout=datetime.timedelta(seconds=SH_RANK_TIMEOUT_S))
     try:
         mesh = make_debug_mesh(*args["mesh"], device_type="cuda")
+        if args.get("job") == "serve":
+            report = serve_rank(args, mesh)
+            dist.barrier()
+            Path(args["out"]).write_text(json.dumps(report))
+            return
         cfg = sharded_cfg(args["arch"], args["layers"])
         run = sharded_run(cfg, mesh, args["batch"], SH_STEPS, keep_init=True)
         errs = update_errors(run["state"]["params"], run["init"], Path(args["want"]),
@@ -2830,11 +2876,11 @@ def sharded_rank(args: dict) -> None:
 
 
 def run_sharded_ranks(label: str, arch: str, layers, mesh_shape, batch: int,
-                      want: Path) -> list:
-    """Phase 17 (b): ``mesh_shape`` ranks of this script on the one card
-    over gloo; their reports (a rank that fails or outlives
+                      want: Path, out_dir: Path = ROOT / "build" / "phase17",
+                      **extra) -> list:
+    """Phase 17 (b) and 18 (a): ``mesh_shape`` ranks of this script on the
+    one card over gloo; their reports (a rank that fails or outlives
     SH_RANK_TIMEOUT_S fails the phase, every rank killed)."""
-    out_dir = ROOT / "build" / "phase17"
     out_dir.mkdir(parents=True, exist_ok=True)
     world = mesh_shape[0] * mesh_shape[1]
     port = free_port()
@@ -2842,7 +2888,7 @@ def run_sharded_ranks(label: str, arch: str, layers, mesh_shape, batch: int,
     for rank in range(world):
         args = dict(rank=rank, world=world, port=port, mesh=list(mesh_shape), arch=arch,
                     layers=layers, batch=batch, want=str(want),
-                    out=str(out_dir / f"{label}_rank{rank}.json"))
+                    out=str(out_dir / f"{label}_rank{rank}.json"), **extra)
         procs.append(subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
              json.dumps(args)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2984,6 +3030,301 @@ def phase_sharded(smi: str) -> tuple[int, int]:
     return sh_fwd, sh_bwd
 
 
+# ----------------------------------------------------------------- phase 18
+
+def placed_params(params, mesh):
+    """``params`` (the same on every rank) placed under the rules'
+    shardings on ``mesh``."""
+    p_sh = param_shardings(params, mesh)
+    return unflatten(params, [place(w, sh) for w, sh in zip(leaves(params), leaves(p_sh))])
+
+
+def greedy_against(spec, params, prompts: np.ndarray, want: np.ndarray, cache_len: int):
+    """Greedy decode of ``prompts`` as ``serve_batch`` does; returns (tokens
+    [b, SERVE_GEN], the first (step, row) where they leave ``want`` or
+    None, and there this run's logit of its token less its logit of
+    ``want``'s token)."""
+    logits, caches = spec.prefill(params, prefill_input(spec, prompts), cache_len)
+    toks, first = [], None
+    for i in range(SERVE_GEN):
+        tok = logits.argmax(-1)
+        toks.append(tok.cpu().numpy())
+        off = np.nonzero(toks[-1] != want[:, i])[0]
+        if first is None and len(off):
+            row = int(off[0])
+            gap = float(logits[row, tok[row]] - logits[row, int(want[row, i])])
+            first = (i, row, gap)
+        if i < SERVE_GEN - 1:
+            logits, caches = spec.decode_step(params, tok[:, None], caches,
+                                              decode_pos(spec, i))
+    return np.stack(toks, 1), first
+
+
+def cache_placement(caches) -> list:
+    """(split axes, slots held) of each layer's placed cache on this rank."""
+    return [(list(c.split), c.cache.k.shape[2]) for c in caches["dense_stack"]]
+
+
+def serve_rank(args: dict, mesh) -> dict:
+    """One rank of phase 18 (a) on ``mesh``: qwen3-0.6b at 2 layers in f32,
+    teacher-forced by the one-rank run's tokens, each step's logits held
+    against that run's; then at full depth in bf16, phase 7's requests
+    served greedily beside the one-rank run's tokens."""
+    device = mesh_device(mesh)
+    cfg = get_config(SERVE_ARCH)
+    want = torch.load(args["want"], map_location="cpu", weights_only=False)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, num_layers=SV_F32_LAYERS)
+    params = placed_params(build_model(cfg32).init(0, device), mesh)
+    got = teacher_forced_logits(build_model(cfg32, mesh=mesh), params, want["prompts"],
+                                want["forced"], cache_len=SV_CACHE_LEN)
+    f32_errs = [float((g.cpu() - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want["logits"])]
+    del params, got
+    free_device("f32 check")
+
+    spec = build_model(cfg, mesh=mesh)
+    params = placed_params(build_model(cfg).init(0, device), mesh)
+    queue = want["queue"][:SV_RANK_BATCHES * SERVE_BATCH]
+    zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [greedy_against(spec, params, queue[i:i + SERVE_BATCH],
+                              want["tokens"][i // SERVE_BATCH], SV_CACHE_LEN)
+               for i in range(0, len(queue), SERVE_BATCH)]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = flash_counts()
+    _, caches = spec.prefill(params, prefill_input(spec, queue[:SERVE_BATCH]), SV_CACHE_LEN)
+    placement = cache_placement(caches)
+    return dict(rank=args["rank"], f32_errs=f32_errs, serve_s=serve_s, counts=counts,
+                tokens=[t.tolist() for t, _ in batches], first=[f for _, f in batches],
+                placement=placement, batches=len(batches),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def serve_on_1x1(cfg, queue: list, smi: str) -> dict:
+    """Phase 18 (a) in this process: phase 7's requests served by the
+    sharded spec on a 1x1 mesh over NCCL and by the unsharded spec; tokens
+    and teacher-forced logits must be bit-equal."""
+    import datetime
+
+    import torch.distributed as dist
+
+    spec = build_model(cfg)
+    params = spec.init(0, "cuda")
+    plain, plain_s = serve_requests(spec, params, queue)
+    prompts = np.stack(queue[:SERVE_BATCH])
+    forced = plain[0][:, :SERVE_GEN - 1]
+    want = teacher_forced_logits(spec, params, prompts, forced)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SH_RANK_TIMEOUT_S))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        sspec, placed = build_model(cfg, mesh=mesh), placed_params(params, mesh)
+        zero_flash_counts()
+        got_batches, got_s = serve_requests(sspec, placed, queue)
+        counts = flash_counts()
+        got = teacher_forced_logits(sspec, placed, prompts, forced)
+    finally:
+        dist.destroy_process_group()
+    for a_, b_ in zip(got_batches, plain):
+        check(np.array_equal(a_, b_), "(a) 1x1: served tokens differ from serve_batch's")
+    for i, (a_, b_) in enumerate(zip(got, want)):
+        check(torch.equal(a_, b_), f"(a) 1x1: logits of step {i} differ "
+              f"(max |d| {float((a_ - b_).abs().max()):.3g})")
+    fwd, tc = counts[:2]
+    check(fwd == tc and fwd >= cfg.num_layers * len(plain),
+          f"(a) 1x1: flash launches {counts}, want >= {cfg.num_layers} a prefill, "
+          "all tensor-core")
+    log(f"  (a) {SERVE_ARCH} on a 1x1 mesh over NCCL: {len(queue)} requests in "
+        f"{len(plain)} batches, tokens and {len(got)} teacher-forced logits bit-equal to "
+        f"the unsharded spec's; flash {fwd} ({tc} tensor-core); served in {got_s:.3f} s "
+        f"(unsharded {plain_s:.3f} s); {smi}")
+    return dict(tokens=plain, launches=fwd)
+
+
+def f32_reference(cfg, prompts: np.ndarray) -> dict:
+    """Phase 18 (a)'s one-rank f32 run at 2 layers: prefill and
+    SV_F32_STEPS greedy decode steps at SV_CACHE_LEN; its prompts, tokens
+    and logits (on the host)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, num_layers=SV_F32_LAYERS)
+    spec = build_model(cfg32)
+    params = spec.init(0, "cuda")
+    logits, caches = spec.prefill(params, prefill_input(spec, prompts), SV_CACHE_LEN)
+    out, forced = [logits.cpu()], []
+    for i in range(SV_F32_STEPS):
+        tok = logits.argmax(-1)[:, None]
+        forced.append(tok.cpu().numpy())
+        logits, caches = spec.decode_step(params, tok, caches, decode_pos(spec, i))
+        out.append(logits.cpu())
+    return dict(prompts=prompts, forced=np.concatenate(forced, 1), logits=out)
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """Phase 18 (b) and (c)'s dry-run cells as ``python -m
+    repro_torch.launch.dryrun`` subprocesses with no card visible, all
+    started at once: DRY_CELLS, and phase 10's step (4 x 2048) on a 1x1
+    mesh."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cells = [["--arch", a, "--shape", sh, *(["--multi-pod"] if multi else [])]
+             for a, sh, multi in DRY_CELLS]
+    cells.append(["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "1x1",
+                  "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    return [(cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--results", str(out_dir)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cell in cells]
+
+
+def finish_dryruns(procs: list) -> None:
+    """Wait for :func:`start_dryruns`' subprocesses (each within
+    DRY_TIMEOUT_S of its start); any that fails fails the phase."""
+    failures = []
+    try:
+        for cell, t0, proc in procs:
+            try:
+                output, _ = proc.communicate(timeout=max(1.0, DRY_TIMEOUT_S - (
+                    time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                failures.append(f"{cell} outlived {DRY_TIMEOUT_S} s")
+                continue
+            if proc.returncode:
+                failures.append(f"{cell} exit {proc.returncode}:\n{output[-3000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not failures, "dry-run: " + "\n".join(failures))
+
+
+def roofline_against_card(row: dict, smi: str) -> dict:
+    """Phase 18 (c): phase 10's step on the card (make_step, 4 x 2048,
+    bf16, remat) against the dry-run's count of the same step."""
+    cfg = get_config(TRAIN_ARCH)
+    spec = build_model(cfg)
+    opt_cfg = sharded_opt_cfg()
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = make_state(spec, opt_cfg, 0, compression=False, device="cuda")
+    step = make_step(spec, opt_cfg, compression=False)
+    times, peaks = [], []
+    for i in range(ROOF_STEPS):
+        batch = data.batch_at(i, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        check(bool(torch.isfinite(m["loss"])), "(c) non-finite loss")
+    del state
+    ms = statistics.median(times[1:])
+    peak = max(peaks[1:])
+    bound_ms = max(row["t_compute"], row["t_memory"], row["t_collective"]) * 1e3
+    ratio = row["peak_bytes_per_dev"] / peak
+    log(f"  (c) {TRAIN_ARCH} step of {TRAIN_BATCH} x {TRAIN_SEQ} (bf16, remat) on the card: "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms, median of steps 2..{ROOF_STEPS} "
+        f"{ms:.2f} ms; peak {peak / 2**30:.3f} GiB over the state's start; {smi}")
+    log(f"  (c) dry-run of the same step on a 1x1 fake mesh: {row['hlo_flops_per_dev']:.4g} "
+        f"FLOPs, {row['hlo_bytes_per_dev']:.4g} bytes (every op's, unfused), t_compute "
+        f"{row['t_compute'] * 1e3:.2f} ms, t_memory {row['t_memory'] * 1e3:.2f} ms -> bound "
+        f"{bound_ms:.2f} ms ({row['bottleneck']}); predicted peak "
+        f"{row['peak_bytes_per_dev'] / 2**30:.3f} GiB = {ratio:.3f} x the card's")
+    check(ms >= bound_ms, f"(c) the measured step {ms:.2f} ms beats the roofline bound "
+          f"{bound_ms:.2f} ms: the count is wrong")
+    check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+          f"(c) predicted peak {ratio:.3f} x the measured, outside {PEAK_BAND}")
+    mfu = row["model_flops"] / (989e12 * ms / 1e3)
+    log(f"  (c) whole-step share: bound / measured = {bound_ms / ms:.4f}; mfu_upper_bound "
+        f"{row['mfu_upper_bound']:.4f}; measured MFU (6 N D over the bf16 peak) {mfu:.4f}")
+    return dict(ms=ms, bound_ms=bound_ms, peak=peak, ratio=ratio)
+
+
+def phase_sharded_serve(smi: str) -> int:
+    """Sharded serving, the dry-run and the roofline (see the module
+    docstring, item 18). Returns the flash forward launches of its sharded
+    serving runs (every rank's)."""
+    from repro_torch.roofline.report import roofline_table
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "phase18"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dry_dir = out_dir / "dryrun"
+    dry = start_dryruns(dry_dir)
+
+    cfg = get_config(SERVE_ARCH)
+    rng = np.random.default_rng(0)
+    queue = [rng.integers(1, cfg.vocab, size=SERVE_PROMPT) for _ in range(SERVE_REQUESTS)]
+    one = serve_on_1x1(cfg, queue, smi)
+    launches = one["launches"]
+    want = f32_reference(cfg, np.stack(queue[:SERVE_BATCH]))
+    want.update(queue=np.stack(queue), tokens=one["tokens"])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(want, out_dir / "want.pt")
+    del want
+    free_device("phase 18 (a) one rank")
+
+    t0 = time.perf_counter()
+    reports = run_sharded_ranks("serve", SERVE_ARCH, None, SV_MESH, SERVE_BATCH,
+                                out_dir / "want.pt", out_dir=out_dir, job="serve")
+    layers = cfg.num_layers
+    for r in reports:
+        err = max(r["f32_errs"])
+        check(err <= SV_F32_TOL, f"(a) 2x2 rank {r['rank']}: f32 logits {err:.3g} of max "
+              f"|logit| off the one-rank run's (tol {SV_F32_TOL})")
+        fwd, tc = r["counts"][:2]
+        check(fwd == tc and fwd >= layers * r["batches"],
+              f"(a) 2x2 rank {r['rank']}: flash launches {r['counts']}, want >= {layers} a "
+              "prefill, all tensor-core")
+        # L 28 over data 2: this rank's 14 layers hold 16384 / 2 slots, the rest none
+        held = [h for _, h in r["placement"]]
+        d = r["rank"] // SV_MESH[1]
+        want_held = [SV_CACHE_LEN // SV_MESH[1] if i // (layers // SV_MESH[0]) == d else 0
+                     for i in range(layers)]
+        check(held == want_held and all(sp == ["data", "model"] for sp, _ in r["placement"]),
+              f"(a) 2x2 rank {r['rank']}: cache placement {r['placement'][:2]}...")
+        same = float(np.mean([np.array_equal(np.array(t), o)
+                              for t, o in zip(r["tokens"], one["tokens"])]))
+        launches += fwd
+        log(f"  (a) 2x2 rank {r['rank']}: f32 at {SV_F32_LAYERS} layers, prefill + "
+            f"{SV_F32_STEPS} steps within {err:.3g} of max |logit| (tol {SV_F32_TOL}); bf16 "
+            f"full depth: {r['batches']} x {SERVE_BATCH} requests served in "
+            f"{r['serve_s']:.2f} s, batches with every token equal to one rank's: "
+            f"{same:.0%}, first divergence (step, "
+            f"row, logit gap) {r['first']}; flash {r['counts'][:2]}; cache layers held "
+            f"{sum(1 for h in held if h)} of {layers}, {max(held)} slots each; peak "
+            f"{r['peak_gib']:.2f} GiB")
+    log(f"  (a) {SERVE_ARCH} on {SV_MESH[0]}x{SV_MESH[1]} over gloo (4 ranks on one card), "
+        f"cache {SV_CACHE_LEN} slots: wall {time.perf_counter() - t0:.1f} s (process start "
+        "included)")
+    free_device("phase 18 (a)")
+
+    finish_dryruns(dry)
+    rows = [json.loads(f.read_text()) for f in sorted(dry_dir.glob("*.json"))]
+    for r in rows:
+        log(f"  (b) dry-run {r['arch']} {r['shape']} on {r['mesh']}: build {r['build_s']} s, "
+            f"counted run {r['run_s']} s (the cells at once on the host, no card visible, "
+            f"beside (a)'s ranks)")
+        if r["mesh"] == "1x1":
+            continue
+        check(r["ok"] and r["hlo_flops_per_dev"] > 0 and 0 < r["useful_flops_ratio"] <= 1,
+              f"(b) dry-run {r['arch']} {r['shape']} {r['mesh']}: {r}")
+    for mesh in ("16x16", "2x16x16"):
+        log(f"  (b) dry-run rows, {mesh}:\n{roofline_table(rows, mesh)}")
+    check(len(rows) == len(DRY_CELLS) + 1, f"(b) {len(rows)} dry-run results")
+    row = next(r for r in rows if r["mesh"] == "1x1")
+    roof = roofline_against_card(row, smi)
+    free_device("phase 18 (c)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"  phase 18 flash launches (every rank): {launches}; roofline share "
+        f"{roof['bound_ms'] / roof['ms']:.4f}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -3074,7 +3415,7 @@ def main() -> int:
         f"({SERVE_REQUESTS} requests, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
         f"{SERVE_GEN} tokens), the flash kernel at its prefill shapes, f32 checks, "
         f"{HY_TRAIN_STEPS} training steps; {XL_ARCH} served, checked in f32, "
-        f"{XL_TRAIN_STEPS} training steps")
+        f"{XL_TRAIN_STEPS} training steps at {XL_TRAIN_LAYERS} layers")
     hy_fwd, hy_bwd, hy_err = phase_ssm_hybrid()
 
     log(f"[16] the vision-language and audio families: {PG_ARCH} and {WH_ARCH} at full "
@@ -3088,6 +3429,13 @@ def main() -> int:
         f"make_step), on {SH_MESH[0]}x{SH_MESH[1]} over gloo (4 ranks on the one card); "
         f"{DS_ARCH} at {DS_TRAIN_LAYERS} layers on {SH_DS_MESH[0]}x{SH_DS_MESH[1]} (EP)")
     sh_fwd, sh_bwd = phase_sharded(smi)
+
+    log(f"[18] sharded serving, the dry-run and the roofline: {SERVE_ARCH} served on a "
+        f"1x1 mesh over NCCL and on {SV_MESH[0]}x{SV_MESH[1]} over gloo ({SV_CACHE_LEN}-slot "
+        f"caches); python -m repro_torch.launch.dryrun on {len(DRY_CELLS)} production "
+        f"cells; phase 10's step against its roofline")
+    sv_fwd = phase_sharded_serve(smi)
+    log(f"whole script: {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "cgra_sim",
@@ -3106,7 +3454,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd + sh_fwd,
+        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd + sh_fwd + sv_fwd,
         "max_abs_err": max(flash_err, ds_err, hy_err, va_err),
         "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"],

@@ -37,6 +37,11 @@ and of the gradient that JAX's autodiff takes of the reference attention:
   CPU path and the on-card comparisons use them.
 * :func:`flash_attention_padded` serves any sequence length on the causal
   path, padding the end up to the block.
+* On ``meta`` tensors (the dry-run's, ``launch/dryrun.py``) the three entry
+  points return empty outputs of the right shapes and dtypes and report the
+  kernel's work, :func:`flash_attention_flops` and the bytes it reads and
+  writes once, to ``roofline.analysis.add_kernel_work``: no aten op carries
+  the kernel's products, so a FLOP counter would not see them.
 
 Supported variants: causal masking, sliding-window masking (``q - k <
 window``), logit soft-capping (``cap * tanh(s / cap)``) and GQA (kv head =
@@ -207,6 +212,40 @@ def _backward_kernel(q, k, v, lse, do, sm_scale, causal, window, softcap):
     return dq, dk, dv
 
 
+def causal_pairs(s_len: int, window: int | None = None) -> int:
+    """(query, key) pairs a causal mask leaves, with ``window`` (q - k <
+    window) if given."""
+    if window is None or window >= s_len:
+        return s_len * (s_len + 1) // 2
+    return window * (window + 1) // 2 + (s_len - window) * window
+
+
+def flash_attention_flops(b: int, hq: int, s_len: int, d: int, *, causal: bool = True,
+                          window: int | None = None, backward: bool = False) -> int:
+    """FLOPs of the forward's two products (q k^T and p v) over the pairs
+    the masks leave (every pair without ``causal``); the backward's five
+    products are 2.5x that."""
+    pairs = causal_pairs(s_len, window) if causal else s_len * s_len
+    flops = 4 * b * hq * d * pairs
+    return flops * 5 // 2 if backward else flops
+
+
+def _meta_work(ins, outs, flops: int) -> None:
+    from ..roofline.analysis import add_kernel_work
+
+    add_kernel_work(flops, sum(t.numel() * t.element_size() for t in (*ins, *outs)))
+
+
+def _forward_meta(q, k, v, causal, window, with_lse):
+    """The forward on meta tensors: empty outputs, the work reported."""
+    b, hq, s_len, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * hq, s_len), dtype=torch.float32, device=q.device)
+    _meta_work((q, k, v), (out, lse) if with_lse else (out,),
+               flash_attention_flops(b, hq, s_len, d, causal=causal, window=window))
+    return out, lse
+
+
 def flash_attention_lse(q, k, v, *, sm_scale: float, causal: bool = True,
                         window: int | None = None, softcap: float | None = None,
                         block_q: int = 128, block_kv: int = 128):
@@ -217,6 +256,8 @@ def flash_attention_lse(q, k, v, *, sm_scale: float, causal: bool = True,
         return flash_attention_torch(q, k, v, sm_scale=sm_scale, causal=causal,
                                      window=window, softcap=softcap, block_q=block_q,
                                      block_kv=block_kv, return_lse=True)
+    if q.device.type == "meta":
+        return _forward_meta(q, k, v, causal, window, True)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     return _forward_kernel(q, k, v, sm_scale, causal, window, softcap, True)
@@ -235,6 +276,12 @@ def flash_attention_backward(q, k, v, lse, do, *, sm_scale: float,
         return flash_attention_backward_torch(
             q, k, v, lse, do, sm_scale=sm_scale, causal=causal, window=window,
             softcap=softcap, block_q=block_q, block_kv=block_kv)
+    if q.device.type == "meta":
+        grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        b, hq, s_len, d = q.shape
+        _meta_work((q, k, v, lse, do), grads, flash_attention_flops(
+            b, hq, s_len, d, causal=causal, window=window, backward=True))
+        return grads
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     return _backward_kernel(q, k, v, lse, do, sm_scale, causal, window, softcap)
@@ -297,6 +344,8 @@ def flash_attention(
         return flash_attention_torch(q, k, v, sm_scale=sm_scale, causal=causal,
                                      window=window, softcap=softcap,
                                      block_q=bq, block_kv=bkv)
+    if q.device.type == "meta":
+        return _forward_meta(q, k, v, causal, window, False)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     return _forward_kernel(q, k, v, sm_scale, causal, window, softcap, False)[0]

@@ -11,7 +11,8 @@ exposing, in this package:
     make_caches(params, batch, cache_len) -> caches
     loss_fn(params, batch)    -> (loss, metrics)                    [training]
 
-``input_specs`` stays ``None`` until the dry-run slice is ported. ``dtype``
+``input_specs`` stays ``None``, as in the reference: the dry-run builds its
+inputs with ``zoo.train_input_specs``. ``dtype``
 holds a torch dtype: bf16 by default, f32 in :meth:`ArchConfig.reduced`.
 
 Shapes: each arch owns the assignment's four shapes; `shapes()` applies the

@@ -31,6 +31,27 @@ Cache layouts (decode):
   GQA: k, v [batch, kv_heads, cache_len, head_dim]
   MLA: c_kv [batch, cache_len, kv_lora + rope_dim] (the compressed latent
        and the shared rope key)
+
+On a mesh (``models/sharded.py``) a layer's cache is a :class:`PlacedCache`:
+this rank's slots of it, under the placement the reference's
+``cache_shardings`` gives the stacked cache (``sharding/rules.py``). The
+rows and heads of a pass are this rank's (``tp``'s), the cache holds every
+row and head. Each pass gathers its new k/v (or latents) over the axes
+that split rows or heads, and writes the slots of the block this rank
+holds (a static range: the caller passes the block's first position
+``start`` as a Python int). A cache every rank holds whole is attended as
+on one device, over its rows and heads of this rank. A cache spread over
+ranks (its layers over the data axes, its slots over any axes) is attended
+in parts: decode gathers the query over the axes that split rows or heads,
+each rank takes the partial softmax (max, sum, weighted values) of every
+row over the slots it holds (a rank with none gives max -inf, sum 0), and
+``sharding.spmd.combine_softmax`` combines the parts over the axes that
+spread the cache; each rank keeps its own rows and heads. A prefill from
+position 0 attends over its own k/v (the flash kernel for GQA), which
+needs no slot of the cache.
+
+``start``, the first position as a Python int, keeps the choice of the
+kernel path static: without it the position is read back from the device.
 """
 
 from __future__ import annotations
@@ -50,6 +71,46 @@ class KVCache(NamedTuple):
 
 class MLACache(NamedTuple):
     c_kv: torch.Tensor   # [batch, cache, kv_lora + rope_dim]
+
+
+class PlacedCache(NamedTuple):
+    """A layer's cache on one rank of a mesh: ``cache`` holds slots
+    ``[slot0, slot0 + n)`` of a cache of ``length`` slots, every row and
+    head (n is 0 on a rank that holds none of the layer); ``split`` names
+    the mesh axes that spread the layer's slots over ranks (none when each
+    rank holds the whole cache)."""
+
+    cache: KVCache | MLACache
+    slot0: int
+    length: int
+    split: tuple
+
+
+def _write_placed(placed: PlacedCache, dst: torch.Tensor, src: torch.Tensor,
+                  dim: int, start: int) -> None:
+    """Write the block ``src`` (all rows and heads, its positions along
+    ``dim`` from ``start``, clamped as :func:`clamped_block_index` clamps)
+    into the slots of it that ``dst`` holds."""
+    s = src.shape[dim]
+    block0 = min(max(start, 0), max(placed.length - s, 0))
+    held = dst.shape[dim]
+    a, b = max(block0, placed.slot0), min(block0 + s, placed.slot0 + held)
+    if a < b:
+        dst.narrow(dim, a - placed.slot0, b - a).copy_(src.narrow(dim, a - block0, b - a))
+
+
+def _partial_softmax(scores: torch.Tensor, weighted):
+    """(max, sum, weighted values) of a softmax over the last dim of
+    ``scores`` (masked entries already biased): ``weighted(p)`` gives the
+    values weighted by the unnormalised probabilities ``p``. No keys give
+    max -inf, sum 0 and zero values."""
+    if scores.shape[-1] == 0:
+        m = torch.full(scores.shape[:-1], float("-inf"), device=scores.device)
+        p = torch.zeros_like(scores)
+        return m, p.sum(-1), weighted(p)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    return m, p.sum(-1), weighted(p)
 
 
 def gqa_init(gen: torch.Generator, cfg, layer_dtype, device) -> dict:
@@ -95,17 +156,22 @@ _BLOCKED_ATTN_THRESHOLD = 16 * 2**20   # s_q * s_k above which we block
 _Q_BLOCK = 512
 
 
-def _scores_attention(qg, k, v, q_pos, k_pos, *, scale, attn_softcap, causal,
-                      window, prefix_len, valid):
-    """Direct softmax attention in f32. qg: [b, hkv, g, s, d]; k, v:
-    [b, hkv, t, d]; ``valid`` [t] masks cache slots not yet written."""
+def _scores(qg, k, q_pos, k_pos, *, scale, attn_softcap, causal, window, prefix_len,
+            valid):
+    """Masked f32 scores [b, hkv, g, s, t] of qg [b, hkv, g, s, d] against
+    k [b, hkv, t, d]; ``valid`` [t] masks cache slots not yet written."""
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
     scores = softcap(scores, attn_softcap)
     bias = _mask_bias(q_pos, k_pos, causal=causal, window=window,
                       prefix_len=prefix_len)
     if valid is not None:
         bias = bias + torch.where(valid, 0.0, -1e30)[None, :]
-    probs = torch.softmax(scores + bias, dim=-1)
+    return scores + bias
+
+
+def _scores_attention(qg, k, v, q_pos, k_pos, **masks):
+    """Direct softmax attention in f32 over :func:`_scores`."""
+    probs = torch.softmax(_scores(qg, k, q_pos, k_pos, **masks), dim=-1)
     return torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
 
 
@@ -133,9 +199,11 @@ def gqa_attention(
     causal: bool = True,
     window: int | None = None,     # None | int (<= 0 => global)
     prefix_len: int | None = None,  # prefix-LM bidirectional region
-    cache: KVCache | None = None,  # append & attend over cache
+    cache: KVCache | PlacedCache | None = None,  # append & attend over cache
     cross_kv: tuple | None = None,  # encoder K/V for cross-attention
-) -> tuple[torch.Tensor, KVCache | None]:
+    start: int | None = None,      # positions[0] as a Python int, if known
+    tp=None,                       # a placed cache's rows and heads
+) -> tuple[torch.Tensor, KVCache | PlacedCache | None]:
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["w_q"]).reshape(b, s, hq, hd).transpose(1, 2)
@@ -154,18 +222,28 @@ def gqa_attention(
     scale = cfg.head_dim**-0.5 if cfg.attn_scale is None else cfg.attn_scale
     prefill = s > 1 and causal and cross_kv is None and prefix_len is None
 
-    new_cache = None
+    new_cache = placed = None
     if cache is not None and cross_kv is None:
-        # write k/v at the pass's positions (the block's start clamped)
-        idx = clamped_block_index(positions, cache.k.shape[2])
-        cache.k.index_copy_(2, idx, k)
-        cache.v.index_copy_(2, idx, v)
         new_cache = cache
+        if isinstance(cache, PlacedCache):
+            placed, cache = cache, cache.cache
+            if start is None:
+                start = int(positions[0])
+            for dst, src in ((cache.k, k), (cache.v, v)):
+                _write_placed(placed, dst, tp.gather_rows_heads(src), 2, start)
+        else:
+            # write k/v at the pass's positions (the block's start clamped)
+            idx = clamped_block_index(positions, cache.k.shape[2])
+            cache.k.index_copy_(2, idx, k)
+            cache.v.index_copy_(2, idx, v)
         # the kernel attends over the pass's own k/v: a prefill from
         # position 0 sees nothing else of the cache, a later one does
-        prefill = prefill and int(positions[0]) == 0
+        prefill = prefill and (int(positions[0]) if start is None else start) == 0
 
-    if prefill:
+    if placed is not None and placed.split and not prefill:
+        out = _gqa_spread(q, cache, placed, positions, cfg, tp, scale=scale,
+                          causal=causal, window=window, prefix_len=prefix_len)
+    elif prefill:
         out = flash_attention_padded(
             q, k, v, sm_scale=scale,
             window=window if window is not None and window > 0 else None,
@@ -174,8 +252,10 @@ def gqa_attention(
     else:
         if new_cache is not None:
             # decode, or a prefill at an offset: attend over the whole
-            # cache, unwritten slots masked
+            # cache (this rank's rows and heads of it), unwritten slots masked
             k, v = cache.k, cache.v
+            if placed is not None:
+                k, v = tp.local_rows_heads(k), tp.local_rows_heads(v)
             k_pos = torch.arange(k.shape[2], device=x.device)
             valid = k_pos <= positions[-1]
         else:
@@ -195,6 +275,26 @@ def gqa_attention(
         ).reshape(b, hq, s, hd)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return out.to(x.dtype) @ params["w_o"], new_cache
+
+
+def _gqa_spread(q, cache: KVCache, placed: PlacedCache, positions, cfg, tp, *,
+                scale, causal, window, prefix_len) -> torch.Tensor:
+    """Attention of this rank's rows and heads ``q`` over a cache spread
+    over ranks: every row's and head's partial softmax over the slots this
+    rank holds, combined over ``placed.split``."""
+    from ..sharding.spmd import combine_softmax
+
+    q_all = tp.gather_rows_heads(q)                          # [B, Hq, s, D]
+    bsz, hq, s, hd = q_all.shape
+    hkv = cache.k.shape[1]
+    k_pos = placed.slot0 + torch.arange(cache.k.shape[2], device=q.device)
+    scores = _scores(q_all.reshape(bsz, hkv, hq // hkv, s, hd), cache.k, positions, k_pos,
+                     scale=scale, attn_softcap=cfg.attn_softcap, causal=causal,
+                     window=window, prefix_len=prefix_len, valid=k_pos <= positions[-1])
+    m, l, o = _partial_softmax(scores, lambda p: torch.einsum(
+        "bhgqk,bhkd->bhgqd", p, cache.v.float()))
+    out = combine_softmax(m, l, o, tp.spmd, placed.split)
+    return tp.local_rows_heads(out.reshape(bsz, hq, s, hd))
 
 
 def make_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> KVCache:
@@ -228,8 +328,10 @@ def mla_attention(
     positions: torch.Tensor,       # [seq] (absolute)
     cfg,
     *,
-    cache: MLACache | None = None,  # append & attend over cache
-) -> tuple[torch.Tensor, MLACache | None]:
+    cache: MLACache | PlacedCache | None = None,  # append & attend over cache
+    start: int | None = None,       # positions[0] as a Python int, if known
+    tp=None,                        # a placed cache's rows
+) -> tuple[torch.Tensor, MLACache | PlacedCache | None]:
     """DeepSeek MLA: queries and keys split into a latent 'nope' part and a
     rope part whose key is shared by every head; only the compressed latent
     and the rope key are cached, written at ``positions`` in place."""
@@ -247,17 +349,31 @@ def mla_attention(
     k_rope = rope(k_rope[:, None], positions[None, None, :],
                   theta=cfg.rope_theta)[:, 0]           # [b, s, rope] shared
 
-    new_cache = None
-    if cache is not None:
+    new_cache = placed = None
+    k_pos, valid = positions, None
+    if isinstance(cache, PlacedCache):
+        placed, new_cache = cache, cache
+        if start is None:
+            start = int(positions[0])
+        packed = tp.gather_rows_heads(torch.cat([c_kv, k_rope], dim=-1), heads=False)
+        _write_placed(placed, cache.cache.c_kv, packed, 1, start)
+        if not placed.split:
+            full = tp.local_rows_heads(cache.cache.c_kv, heads=False)
+            c_kv, k_rope = full[..., :m.kv_lora], full[..., m.kv_lora:]
+            k_pos = torch.arange(placed.length, device=x.device)
+            valid = k_pos <= positions[-1]
+        elif s == 1 or start != 0:
+            out = _mla_spread(params, q_nope, q_rope, cache.cache, placed,
+                              positions, cfg, tp)
+            return out.to(x.dtype) @ params["w_o"], new_cache
+        # else a prefill from 0 over a spread cache: its own latents
+    elif cache is not None:
         cache.c_kv.index_copy_(1, clamped_block_index(positions, cache.c_kv.shape[1]),
                                torch.cat([c_kv, k_rope], dim=-1))
         new_cache = cache
         c_kv, k_rope = cache.c_kv[..., :m.kv_lora], cache.c_kv[..., m.kv_lora:]
         k_pos = torch.arange(cache.c_kv.shape[1], device=x.device)
         valid = k_pos <= positions[-1]
-    else:
-        k_pos = positions
-        valid = None
 
     c_kv = rms_norm(c_kv, params["kv_norm"])
     t = c_kv.shape[1]
@@ -278,18 +394,49 @@ def mla_attention(
         )                                                         # [b,h,1,s,vd]
         out = out[:, :, 0].transpose(1, 2)                        # [b,s,h,vd]
     else:
-        # the reference's (nope + rope) * scale + bias, in place: at a
-        # 2048-token prefill of V3 each [b, h, s, t] f32 term is 8.7 GB
-        scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
-        scores.add_(torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float()))
-        scores.mul_(scale)
-        bias = _mask_bias(positions, k_pos, causal=True, window=None)
-        if valid is not None:
-            bias = bias + torch.where(valid, 0.0, -1e30)[None, :]
-        probs = torch.softmax(scores.add_(bias), dim=-1)
+        probs = torch.softmax(_mla_scores(q_nope, q_rope, k_nope, k_rope, scale,
+                                          positions, k_pos, valid), dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     out = out.reshape(b, s, h * m.v_dim).to(x.dtype)
     return out @ params["w_o"], new_cache
+
+
+def _mla_scores(q_nope, q_rope, k_nope, k_rope, scale, positions, k_pos, valid):
+    """MLA's masked f32 scores [b, h, s, t]: the reference's (nope + rope)
+    * scale + bias, in place (at a 2048-token prefill of V3 each [b, h, s,
+    t] f32 term is 8.7 GB)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+    scores.add_(torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float()))
+    scores.mul_(scale)
+    bias = _mask_bias(positions, k_pos, causal=True, window=None)
+    if valid is not None:
+        bias = bias + torch.where(valid, 0.0, -1e30)[None, :]
+    return scores.add_(bias)
+
+
+def _mla_spread(params, q_nope, q_rope, cache: MLACache, placed: PlacedCache,
+                positions, cfg, tp) -> torch.Tensor:
+    """MLA of this rank's rows over a cache spread over ranks (as
+    :func:`_gqa_spread`); returns [b, s, h * v_dim] in f32."""
+    from ..sharding.spmd import combine_softmax
+
+    m = cfg.mla
+    q_nope = tp.gather_rows_heads(q_nope, heads=False)       # [B, s, h, dn]
+    q_rope = tp.gather_rows_heads(q_rope, heads=False)
+    bsz, s, h, _ = q_nope.shape
+    t = cache.c_kv.shape[1]
+    c_kv = rms_norm(cache.c_kv[..., :m.kv_lora], params["kv_norm"])
+    k_rope = cache.c_kv[..., m.kv_lora:]
+    k_nope = (c_kv @ params["w_uk"]).reshape(bsz, t, h, m.qk_nope_dim)
+    v = (c_kv @ params["w_uv"]).reshape(bsz, t, h, m.v_dim)
+    k_pos = placed.slot0 + torch.arange(t, device=q_nope.device)
+    scores = _mla_scores(q_nope, q_rope, k_nope, k_rope, (m.qk_nope_dim + m.rope_dim) ** -0.5,
+                         positions, k_pos, k_pos <= positions[-1])
+    mx, l, o = _partial_softmax(scores, lambda p: torch.einsum(
+        "bhqk,bkhd->bhqd", p, v.float()))
+    out = combine_softmax(mx, l, o, tp.spmd, placed.split)   # [B, h, s, dv]
+    out = tp.local_rows_heads(out.transpose(1, 2), heads=False)
+    return out.reshape(out.shape[0], s, h * m.v_dim)
 
 
 def make_mla_cache(cfg, batch: int, cache_len: int, dtype, device) -> MLACache:

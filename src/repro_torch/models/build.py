@@ -22,7 +22,14 @@ Given a mesh, ``build_model`` runs the same loss on each rank's shards:
 one device) takes the placed weights to local ones, sums the row-parallel
 partial outputs over the model axis, looks the embedding up and takes the
 cross-entropy over a vocab sharded on that axis, and runs the reference's
-expert-parallel ``shard_map`` island for the MoE FFN.
+expert-parallel ``shard_map`` island for the MoE FFN. ``lm_prefill`` and
+``lm_decode_step`` take ``tp`` too: the whole batch in, the whole logits
+out, each rank on its rows and heads over its part of the placed caches
+(``models/sharded.py`` says how).
+
+A pass's first position travels as a Python int (``start``) where it is
+known, so no step reads a position back from the device: the model runs
+on ``meta`` tensors too (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -34,12 +41,12 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ops import resolve_device
 from .api import ArchConfig
 from .attention import (
-    KVCache, MLACache, gqa_attention, gqa_init, make_kv_cache,
+    KVCache, MLACache, PlacedCache, gqa_attention, gqa_init, make_kv_cache,
     make_mla_cache, mla_attention, mla_init,
 )
 from .layers import (
     cross_entropy_loss, dense_param, embed_param, geglu_mlp, gelu_mlp,
-    gelu_mlp_init, rms_norm, softcap, swiglu_mlp, swiglu_mlp_init,
+    gelu_mlp_init, generator, rms_norm, softcap, swiglu_mlp, swiglu_mlp_init,
 )
 from .moe import moe_ffn, moe_init
 
@@ -69,20 +76,23 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device) -> dict
 def block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, *, kind: str, window: int | None = None,
                 prefix_len: int | None = None,
-                cache: KVCache | MLACache | None = None, tp=None):
+                cache: KVCache | MLACache | PlacedCache | None = None, tp=None,
+                start: int | None = None):
     """One pre-norm block; returns (x, cache, aux), aux the MoE block's
     load-balance loss (0 for a dense block). With ``tp``, ``p`` holds this
-    rank's placed shards."""
+    rank's placed shards. ``start`` is the pass's first position, if the
+    caller knows it."""
     attn_cfg = cfg
     if tp is not None:
         p, attn_cfg = tp.block(p), tp.attn_cfg
     h = rms_norm(x, p["attn_norm"])
     if cfg.mla is not None:
-        a, new_cache = mla_attention(p["attn"], h, positions, cfg, cache=cache)
+        a, new_cache = mla_attention(p["attn"], h, positions, cfg, cache=cache,
+                                     start=start, tp=tp)
     else:
         a, new_cache = gqa_attention(p["attn"], h, positions, attn_cfg,
                                      window=window, cache=cache,
-                                     prefix_len=prefix_len)
+                                     prefix_len=prefix_len, start=start, tp=tp)
     if tp is not None:
         a = tp.reduce_attn(a)
     if cfg.sandwich_norm:
@@ -135,7 +145,8 @@ def _block_out(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
                 positions: torch.Tensor, cfg: ArchConfig, *, kind: str,
-                caches=None, prefix_len: int | None = None, tp=None):
+                caches=None, prefix_len: int | None = None, tp=None,
+                start: int | None = None):
     """A plain loop over the layers of one stack; returns (x, aux summed
     over the layers, caches).
 
@@ -155,7 +166,8 @@ def apply_stack(stack: list[dict], windows: np.ndarray, x: torch.Tensor,
     for i, p_l in enumerate(stack):
         x, nc, aux_l = block_apply(p_l, x, positions, cfg, kind=kind,
                                    window=int(windows[i]), prefix_len=prefix_len,
-                                   cache=None if caches is None else caches[i], tp=tp)
+                                   cache=None if caches is None else caches[i], tp=tp,
+                                   start=start)
         aux = aux + aux_l
         new_caches.append(nc)
     return x, aux, (new_caches if caches is not None else None)
@@ -167,7 +179,7 @@ def _lm_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (the reference's init distributions; torch's numbers, not JAX's)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     params: dict = {
         "embed": embed_param(gen, cfg.vocab, cfg.d_model, cfg.dtype, device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
@@ -217,12 +229,13 @@ def _unembed(params, cfg, x):
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
-               prefix_embeds=None, tp=None):
+               prefix_embeds=None, tp=None, start: int | None = None):
     """Shared trunk: embeddings -> stacks -> (hidden states, aux summed over
     the layers, caches). On a pass of more than one token the meta tokens,
     then ``prefix_embeds`` [b, p, d_model], are prepended (during decode
     they already sit in the cache); with ``cfg.prefix_lm`` attention is
-    bidirectional over everything prepended."""
+    bidirectional over everything prepended. ``start`` is ``positions[0]``
+    as a Python int (0 when ``positions`` is None)."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, tp)
     if params.get("meta_tokens") is not None and s > 1:
@@ -232,7 +245,7 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s_eff = x.shape[1]
     if positions is None:
-        positions = torch.arange(s_eff, device=x.device)
+        positions, start = torch.arange(s_eff, device=x.device), 0
     prefix_len = (s_eff - s) if (cfg.prefix_lm and s_eff > s) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: dict = {}
@@ -241,7 +254,7 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, caches=None, positions=None,
             params[stack_name], layer_windows(cfg, n_layers, offset), x,
             positions, cfg, kind=kind,
             caches=caches.get(stack_name) if caches is not None else None,
-            prefix_len=prefix_len, tp=tp,
+            prefix_len=prefix_len, tp=tp, start=start,
         )
         aux = aux + aux_s
         new_caches[stack_name] = nc
@@ -287,28 +300,48 @@ def lm_loss(params, cfg: ArchConfig, batch, tp=None):
 
 # ----------------------------------------------------------- serve paths
 
-def lm_make_caches(params, cfg: ArchConfig, batch: int, cache_len: int):
+def lm_make_caches(params, cfg: ArchConfig, batch: int, cache_len: int, tp=None):
+    """Zero caches of ``batch`` rows and ``cache_len`` slots, a list per
+    stack; with ``tp``, this rank's :class:`PlacedCache` of each layer."""
     device = params["embed"].device
     make = make_mla_cache if cfg.mla is not None else make_kv_cache
+    if tp is not None:
+        return tp.place_caches({name: [make(cfg, batch, cache_len, cfg.dtype, "meta")] * n
+                                for name, _, n, _ in _stacks(cfg)}, device)
     return {name: [make(cfg, batch, cache_len, cfg.dtype, device)
                    for _ in range(n_layers)]
             for name, _, n_layers, _ in _stacks(cfg)}
 
 
-def lm_decode_step(params, cfg: ArchConfig, token, caches, pos: int):
+def _serving(params, tokens, tp):
+    """(params, tokens, tp) of a serving pass: with ``tp``, the hooks for
+    its batch, the weights outside the layers as this rank uses them and
+    this rank's rows."""
+    if tp is None:
+        return params, tokens, None
+    tp = tp.for_batch(tokens.shape[0])
+    return tp.top(params), tp.rows(tokens), tp
+
+
+def lm_decode_step(params, cfg: ArchConfig, token, caches, pos: int, tp=None):
     """One decode step: token [B, 1] + caches at absolute position ``pos``."""
+    params, token, tp = _serving(params, token, tp)
     positions = torch.tensor([pos], device=token.device)
     x, _, new_caches = lm_forward(params, cfg, token, caches=caches,
-                                  positions=positions)
-    return _unembed(params, cfg, x)[:, -1], new_caches
+                                  positions=positions, tp=tp, start=pos)
+    logits = _unembed(params, cfg, x)[:, -1]
+    return (logits if tp is None else tp.whole_logits(logits)), new_caches
 
 
-def lm_prefill(params, cfg: ArchConfig, tokens, cache_len: int):
+def lm_prefill(params, cfg: ArchConfig, tokens, cache_len: int, tp=None):
     """Parallel prefill that also fills decode caches: the prompt's k/v (or
     MLA latents) are written at cache offset 0, and GQA attention runs in
     the flash kernel. Only the last position is unembedded (the reference
     unembeds all and keeps the last; the rows are independent, so the
     logits are the same)."""
-    caches = lm_make_caches(params, cfg, tokens.shape[0], cache_len)
-    x, _, new_caches = lm_forward(params, cfg, tokens, caches=caches)
-    return _unembed(params, cfg, x[:, -1:])[:, -1], new_caches
+    batch = tokens.shape[0]
+    params, tokens, tp = _serving(params, tokens, tp)
+    caches = lm_make_caches(params, cfg, batch, cache_len, tp)
+    x, _, new_caches = lm_forward(params, cfg, tokens, caches=caches, tp=tp)
+    logits = _unembed(params, cfg, x[:, -1:])[:, -1]
+    return (logits if tp is None else tp.whole_logits(logits)), new_caches

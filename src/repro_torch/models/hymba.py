@@ -25,8 +25,8 @@ from .api import ArchConfig
 from .attention import gqa_attention, gqa_init, make_kv_cache
 from .build import layer_windows
 from .layers import (
-    cross_entropy_loss, dense_param, embed_param, rms_norm, swiglu_mlp,
-    swiglu_mlp_init,
+    cross_entropy_loss, dense_param, embed_param, generator, rms_norm,
+    swiglu_mlp, swiglu_mlp_init,
 )
 from .ssm import SSDState, ssd, ssd_init, ssd_step
 
@@ -40,7 +40,7 @@ def hymba_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (the reference's init distributions; torch's numbers, not JAX's)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d, dtype = cfg.d_model, cfg.dtype
     meta = torch.randn((cfg.num_meta_tokens, d), generator=gen, device=device,
                        dtype=torch.float32)
@@ -69,10 +69,12 @@ def hymba_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     return params
 
 
-def _layer(lp, x, positions, cfg: ArchConfig, window, kv=None, ssm_state=None):
+def _layer(lp, x, positions, cfg: ArchConfig, window, kv=None, ssm_state=None,
+           start: int | None = None):
     """One hybrid block; returns (x, new KV cache, new SSD state)."""
     h = rms_norm(x, lp["norm"])
-    a, new_kv = gqa_attention(lp["attn"], h, positions, cfg, window=window, cache=kv)
+    a, new_kv = gqa_attention(lp["attn"], h, positions, cfg, window=window, cache=kv,
+                              start=start)
     if x.shape[1] == 1 and ssm_state is not None:
         m, new_ssm = ssd_step(lp["ssd"], h, ssm_state, cfg.num_heads, cfg.ssm.state_dim)
     else:
@@ -91,8 +93,9 @@ def _forward(params, cfg: ArchConfig, tokens, caches: HymbaCaches | None = None,
     if s > 1:  # train/prefill: prepend meta tokens
         meta = params["meta_tokens"][None].expand(b, cfg.num_meta_tokens, cfg.d_model)
         x = torch.cat([meta.to(x.dtype), x], dim=1)
+    start = None
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions, start = torch.arange(x.shape[1], device=x.device), 0
     windows = layer_windows(cfg, cfg.num_layers)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_kv, new_ssm = [], []
@@ -106,7 +109,7 @@ def _forward(params, cfg: ArchConfig, tokens, caches: HymbaCaches | None = None,
             new_kv.append(None)
         else:
             x, nkv, nssm = _layer(lp, x, positions, cfg, window,
-                                  caches.kv[i], caches.ssm[i])
+                                  caches.kv[i], caches.ssm[i], start)
             new_kv.append(nkv)
         new_ssm.append(nssm)
     return x, (HymbaCaches(new_kv, new_ssm) if caches is not None else None)

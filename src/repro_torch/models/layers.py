@@ -16,6 +16,15 @@ import torch
 import torch.nn.functional as F
 
 
+def generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` seeded with ``seed`` for draws on ``device``.
+    A ``meta`` device draws nothing (its tensors hold shapes only), so it
+    takes a CPU generator, which ``torch.randn(..., device="meta")``
+    accepts."""
+    device = torch.device(device)
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
+
 def dense_param(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                 device) -> torch.Tensor:
     """N(0, 1/in_dim) weight ``[in_dim, out_dim]``, drawn in f32."""

@@ -30,18 +30,44 @@ only take weights to the layout each layer runs on and sum partial outputs
 
 Each rank's loss is the mean over its own tokens; the step averages it
 over the data axes. On a 1x1 mesh every op is the single-device path's.
+
+Serving (``build.lm_prefill`` and ``build.lm_decode_step`` with ``tp``)
+takes the whole token batch on every rank and returns the whole logits
+on every rank, as on one device. :meth:`TensorParallel.for_batch` says
+whether a pass's rows split over the data axes (the reference's
+``batch_shardings`` rule: when they divide the batch); each rank runs its
+rows, and its heads as in training. The caches are
+:class:`attention.PlacedCache` s: :meth:`TensorParallel.place_caches`
+gives each layer's cache this rank's part of the placement the
+reference's ``cache_shardings`` gives the stacked cache (every row and
+head; the layers over the data axes where those divide them, a long
+sequence over the model axis or over every axis), and
+``models/attention.py`` writes and attends over it
+(:meth:`gather_rows_heads` and :meth:`local_rows_heads` move a pass's
+rows and heads). The MoE FFN of a serving pass is the training island;
+with ``cfg.ep_over_data`` the experts lie over every axis and the
+activations are whole on every rank, as in the reference's serving EP.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 
-from ..sharding.rules import P
+from ..sharding.rules import P, cache_shardings, spec_axes
 from ..sharding.spmd import Spmd, all_gather, all_max, all_reduce, chunk, to_spec
+from .attention import MLACache, PlacedCache
 from .layers import cross_entropy_loss
 from .moe import moe_ffn
+
+
+def rows_split(spmd: Spmd, batch: int) -> bool:
+    """Whether a batch of ``batch`` rows splits over the data axes (the
+    reference's ``batch_shardings`` rule)."""
+    n = spmd.size(spmd.data_axes)
+    return batch % n == 0 and batch >= n
 
 
 class TensorParallel:
@@ -51,7 +77,9 @@ class TensorParallel:
     def __init__(self, cfg, spmd: Spmd):
         self.spmd = spmd
         m = self.model_axis = spmd.model_axis
-        n = spmd.size(m)
+        # with the model axis among the data axes (pure data parallelism,
+        # the dry-run's batch_over_model) each rank runs whole weights
+        n = 1 if m in spmd.data_axes else spmd.size(m)
         self.split_attn = n > 1 and cfg.mla is None and cfg.num_kv_heads % n == 0
         self.split_mlp = n > 1 and cfg.d_ff % n == 0
         self.split_vocab = n > 1 and cfg.vocab % n == 0
@@ -72,6 +100,13 @@ class TensorParallel:
             self.layout["attn"] = {"w_q": cols, "w_k": cols, "w_v": cols, "w_o": rows}
         if self.split_mlp:
             self.layout["mlp"] = {"w_gate": cols, "w_up": cols, "w_down": rows}
+        self.rows_split = True      # training: the batch is this rank's shard
+
+    def for_batch(self, batch: int) -> "TensorParallel":
+        """These hooks for a serving pass over ``batch`` whole rows."""
+        tp = copy.copy(self)
+        tp.rows_split = rows_split(self.spmd, batch)
+        return tp
 
     def _local(self, d, spec=P()) -> torch.Tensor:
         return to_spec(d, spec, self.spmd)
@@ -118,9 +153,9 @@ class TensorParallel:
         spmd, data = self.spmd, self.spmd.data_axes
         if self.ep_over_data:
             # serving EP: experts over every axis, activations whole
-            out, aux = moe_ffn(p, all_gather(h, spmd, data, 0), cfg,
+            out, aux = moe_ffn(p, self.gather_rows_heads(h, heads=False), cfg,
                                model_axis=(*data, self.model_axis), mesh=spmd)
-            return chunk(out, spmd, data, 0), aux
+            return self.local_rows_heads(out, heads=False), aux
         out, aux = moe_ffn(p, h, cfg, model_axis=self.model_axis, mesh=spmd)
         return out, all_reduce(aux, spmd, data) / spmd.size(data)
 
@@ -156,3 +191,65 @@ class TensorParallel:
         if z_loss:
             loss = loss + z_loss * (lse**2).mean()
         return loss
+
+    # ------------------------------------------------------------ serving
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch."""
+        return chunk(t, self.spmd, self.spmd.data_axes, 0) if self.rows_split else t
+
+    def gather_rows_heads(self, t: torch.Tensor, heads: bool = True) -> torch.Tensor:
+        """A pass's tensor [rows, heads, ...] of this rank as every rank's
+        rows (dim 0, over the data axes when they split the rows) and,
+        with ``heads``, heads (dim 1, over the model axis when it splits
+        attention)."""
+        if self.rows_split:
+            t = all_gather(t, self.spmd, self.spmd.data_axes, 0)
+        if heads and self.split_attn:
+            t = all_gather(t, self.spmd, self.model_axis, 1)
+        return t
+
+    def local_rows_heads(self, t: torch.Tensor, heads: bool = True) -> torch.Tensor:
+        """This rank's rows and (with ``heads``) heads of a whole tensor,
+        the inverse of :meth:`gather_rows_heads` (no communication)."""
+        t = self.rows(t)
+        if heads and self.split_attn:
+            t = chunk(t, self.spmd, self.model_axis, 1)
+        return t
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits [rows, vocab] of this rank's rows and vocab columns as
+        the whole batch's over the whole vocab."""
+        if self.split_vocab:
+            logits = all_gather(logits, self.spmd, self.model_axis, -1)
+        if self.rows_split:
+            logits = all_gather(logits, self.spmd, self.spmd.data_axes, 0)
+        return logits
+
+    def place_caches(self, template: dict, device) -> dict:
+        """This rank's :class:`PlacedCache` of every layer of ``template``
+        (``{stack: [cache of meta tensors, one a layer]}``, the whole
+        caches' shapes), zero-filled on ``device``."""
+        spmd = self.spmd
+        shardings = cache_shardings(template, spmd.mesh, spmd.data_axes,
+                                    model_axis=self.model_axis)
+        out = {}
+        for name, layers in template.items():
+            out[name] = []
+            for one, sh in zip(layers, shardings[name]):
+                slot_dim = 1 if isinstance(one, MLACache) else 2
+                length = one[0].shape[slot_dim]
+                parts = sh[0].local_slices(tuple(one[0].shape), spmd.coord)
+                for d, (_, n) in enumerate(parts or ()):
+                    if d != slot_dim and n != one[0].shape[d]:
+                        raise NotImplementedError(f"{name}: a cache split along dim {d} "
+                                                  f"({sh[0].spec}) is not served")
+                slot0, held = parts[slot_dim] if parts else (0, 0)
+                spec = sh[0].spec
+                split = tuple(a for e in (spec[0], spec[1 + slot_dim])
+                              for a in spec_axes(e) if spmd.sizes[a] > 1)
+                local = type(one)(*(
+                    torch.zeros((*t.shape[:slot_dim], held, *t.shape[slot_dim + 1:]),
+                                dtype=t.dtype, device=device) for t in one))
+                out[name].append(PlacedCache(local, slot0, length, split))
+        return out

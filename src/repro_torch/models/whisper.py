@@ -32,7 +32,7 @@ from ..kernels.ops import resolve_device
 from .api import ArchConfig
 from .attention import clamped_block_index, gqa_attention, gqa_init, make_kv_cache
 from .layers import (
-    cross_entropy_loss, embed_param, gelu_mlp, gelu_mlp_init, layer_norm,
+    cross_entropy_loss, embed_param, gelu_mlp, gelu_mlp_init, generator, layer_norm,
 )
 
 
@@ -59,7 +59,7 @@ def whisper_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     JAX's). The decoder's learned positions hold ``cfg.max_positions``
     rows."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d, dtype = cfg.d_model, cfg.dtype
     pos = torch.randn((cfg.max_positions, d), generator=gen, device=device,
                       dtype=torch.float32)
@@ -123,10 +123,10 @@ def _cross_kv(params_layer, cfg: ArchConfig, enc_out: torch.Tensor):
     return k, v
 
 
-def _dec_layer(lp, x, positions, cfg, cross_kv, cache=None):
+def _dec_layer(lp, x, positions, cfg, cross_kv, cache=None, start: int | None = None):
     """One decoder layer; returns (x, its self-attention cache)."""
     h, new_cache = gqa_attention(lp["self_attn"], _ln(x, lp["ln1"]), positions, cfg,
-                                 cache=cache)
+                                 cache=cache, start=start)
     x = x + h
     h, _ = gqa_attention(lp["cross_attn"], _ln(x, lp["ln2"]), positions, cfg,
                          cross_kv=cross_kv, causal=False)
@@ -149,8 +149,9 @@ def whisper_decode_stack(params, cfg: ArchConfig, tokens, enc_out=None, caches=N
     positions are read at ``positions[0]``, clamped as ``dynamic_slice``
     clamps."""
     s = tokens.shape[1]
+    start = None
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
+        positions, start = torch.arange(s, device=tokens.device), 0
     pos = params["pos_embed"].index_select(
         0, clamped_block_index(positions, params["pos_embed"].shape[0]))
     x = params["embed"][tokens] + pos[None].to(cfg.dtype)
@@ -164,7 +165,7 @@ def whisper_decode_stack(params, cfg: ArchConfig, tokens, enc_out=None, caches=N
     else:
         new_self = []
         for lp, self_c, ckv in zip(params["dec_layers"], caches.self_kv, caches.cross_kv):
-            x, nc = _dec_layer(lp, x, positions, cfg, ckv, cache=self_c)
+            x, nc = _dec_layer(lp, x, positions, cfg, ckv, cache=self_c, start=start)
             new_self.append(nc)
         new_caches = WhisperCaches(new_self, caches.cross_kv)
     x = _ln(x, params["dec_final_ln"])

@@ -18,7 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from .api import ArchConfig
-from .layers import cross_entropy_loss, dense_param, embed_param, rms_norm
+from .layers import cross_entropy_loss, dense_param, embed_param, generator, rms_norm
 from .ssm import (
     MLSTMState, mlstm, mlstm_init, mlstm_step, slstm, slstm_init, slstm_step,
     slstm_zero_state,
@@ -29,7 +29,7 @@ def xlstm_init(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (the reference's init distributions; torch's numbers, not JAX's)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d, dtype = cfg.d_model, cfg.dtype
     params: dict = {
         "embed": embed_param(gen, cfg.vocab, d, dtype, device),

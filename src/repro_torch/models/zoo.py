@@ -12,11 +12,29 @@ meta tokens). An unknown family raises ``ValueError``.
 
 from __future__ import annotations
 
+import torch
+
 from . import build as lm
 from . import hymba as hy
 from . import whisper as wh
 from . import xlstm as xl
-from .api import ArchConfig, ModelSpec
+from .api import ArchConfig, ModelSpec, ShapeSpec
+
+
+def train_input_specs(cfg: ArchConfig, shape: ShapeSpec, device="meta") -> dict:
+    """A training batch of ``shape`` as empty tensors on ``device`` (on
+    ``meta``, shapes and dtypes only): the counterpart of the reference's
+    ``ShapeDtypeStruct`` stand-ins that its dry-run lowers against. Tokens
+    and labels int32 [b, s]; an audio model's frames or a vision model's
+    prefix embeddings f32 [b, frontend_len, d_model]."""
+    b, s = shape.global_batch, shape.seq_len
+    specs = {k: torch.empty((b, s), dtype=torch.int32, device=device)
+             for k in ("tokens", "labels")}
+    extra = {"audio": "frames", "vision": "prefix_embeds"}.get(cfg.frontend)
+    if extra:
+        specs[extra] = torch.empty((b, cfg.frontend_len, cfg.d_model),
+                                   dtype=torch.float32, device=device)
+    return specs
 
 
 def _tokens(batch):
@@ -36,8 +54,12 @@ def build_model(cfg: ArchConfig, *, mesh=None, data_axes=("data",),
     rank's batch shard, and returns this rank's loss
     (``models/sharded.py``); the dense, MoE and vlm families run tensor-
     and expert-parallel as the reference's ``build_model(cfg, mesh=...)``
-    does, the others on whole weights. Serving on a mesh is not ported:
-    its prefill and decode raise."""
+    does, the others on whole weights. ``prefill`` and ``decode_step`` take
+    the whole token batch and return the whole logits on every rank, each
+    rank on its rows (where the data axes divide the batch); the decoder
+    LM's caches are placed as the reference's ``cache_shardings`` places
+    its stacked caches (``models/sharded.py``), the other families' hold
+    this rank's rows."""
     if mesh is not None:
         return _sharded(build_model(cfg), mesh, data_axes, model_axis)
     fam = cfg.family
@@ -91,31 +113,55 @@ def build_model(cfg: ArchConfig, *, mesh=None, data_axes=("data",),
 
 
 def _sharded(spec: ModelSpec, mesh, data_axes, model_axis) -> ModelSpec:
-    """``spec`` with its loss on this rank's shards of ``mesh``: the decoder
-    LM's tensor- and expert-parallel, any other family's on whole weights
-    (each gathered over its sharded axes; the data-parallel form, as the
-    reference's builders of those families take no mesh)."""
+    """``spec`` on this rank's shards of ``mesh``: the decoder LM's loss and
+    serving tensor- and expert-parallel, any other family's on whole
+    weights (each gathered over its sharded axes; the data-parallel form,
+    as the reference's builders of those families take no mesh)."""
     from ..sharding.rules import P
-    from ..sharding.spmd import Spmd, to_spec
+    from ..sharding.spmd import Spmd, all_gather, chunk, to_spec
     from ..tree import tree_map
-    from .sharded import TensorParallel
+    from .sharded import TensorParallel, rows_split
 
     spmd = Spmd(mesh, data_axes=data_axes, model_axis=model_axis)
     cfg = spec.cfg
     if cfg.family in ("dense", "moe", "vlm"):
         tp = TensorParallel(cfg, spmd)
-        loss_fn = lambda p, b: lm.lm_loss(p, cfg, b, tp=tp)  # noqa: E731
-    else:
-        loss_fn = lambda p, b: spec.loss_fn(  # noqa: E731
-            tree_map(lambda d: to_spec(d, P(), spmd), p), b)
+        extra = cfg.frontend_len + cfg.num_meta_tokens
+        return ModelSpec(
+            cfg=cfg,
+            init=spec.init,
+            loss_fn=lambda p, b: lm.lm_loss(p, cfg, b, tp=tp),
+            prefill=lambda p, b, n: lm.lm_prefill(p, cfg, _tokens(b), n, tp=tp),
+            decode_step=lambda p, t, c, pos: lm.lm_decode_step(p, cfg, t, c, pos, tp=tp),
+            make_caches=lambda p, b, n: lm.lm_make_caches(p, cfg, b, n + extra, tp=tp),
+            param_count=spec.param_count,
+        )
 
-    def unported(*_):
-        raise NotImplementedError("serving on a mesh is not ported (ROADMAP queue, "
-                                  "\"Sharded serving\"); build the model without a mesh")
+    def whole(params):
+        return tree_map(lambda d: to_spec(d, P(), spmd), params)
 
-    return ModelSpec(cfg=cfg, init=spec.init, loss_fn=loss_fn, prefill=unported,
-                     decode_step=unported, make_caches=spec.make_caches,
-                     param_count=spec.param_count)
+    def rows(batch):
+        # this rank's rows of a whole batch (a tensor, or a dict of them)
+        n = (batch if torch.is_tensor(batch) else batch["tokens"]).shape[0]
+        if not rows_split(spmd, n):
+            return batch, False
+        return tree_map(lambda t: chunk(t, spmd, data_axes, 0), batch), True
+
+    def serve(fn, params, batch, *args):
+        local, split = rows(batch)
+        logits, caches = fn(whole(params), local, *args)
+        return (all_gather(logits, spmd, data_axes, 0) if split else logits), caches
+
+    return ModelSpec(
+        cfg=cfg,
+        init=spec.init,
+        loss_fn=lambda p, b: spec.loss_fn(whole(p), b),
+        prefill=lambda p, b, n: serve(spec.prefill, p, b, n),
+        decode_step=lambda p, t, c, pos: serve(spec.decode_step, p, t, c, pos),
+        make_caches=lambda p, b, n: spec.make_caches(
+            whole(p), b // spmd.size(data_axes) if rows_split(spmd, b) else b, n),
+        param_count=spec.param_count,
+    )
 
 
 def param_count(params) -> int:

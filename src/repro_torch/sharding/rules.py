@@ -283,6 +283,40 @@ def batch_shardings(batch_specs: Any, mesh, data_axes: tuple[str, ...]) -> Any:
     return _map(spec, batch_specs)
 
 
+@dataclass(frozen=True)
+class StackedSharding:
+    """A per-layer leaf of a layer stack's cache: layer ``layer`` of
+    ``layers`` under ``spec``, the reference's spec for the stacked leaf
+    ``[layers, ...]`` (its first entry splits the layers)."""
+
+    mesh: Any
+    spec: PartitionSpec
+    layer: int
+    layers: int
+
+    def local_slices(self, shape: tuple[int, ...], coord: dict[str, int]
+                     ) -> list[tuple[int, int]] | None:
+        """(start, length) per dim of the part of this layer's leaf (of
+        ``shape``) that the rank at ``coord`` holds; None when it holds
+        none of the layer."""
+        sizes = axis_sizes(self.mesh)
+        spec = tuple(self.spec) + (None,) * (len(shape) + 1 - len(self.spec))
+        start, n = shard_range(spec[0], self.layers, sizes, coord)
+        if not start <= self.layer < start + n:
+            return None
+        return [shard_range(e, dim, sizes, coord) for e, dim in zip(spec[1:], shape)]
+
+
+def shard_range(entry, dim: int, sizes: dict[str, int], coord: dict[str, int]
+                ) -> tuple[int, int]:
+    """(start, length) of the chunk of a dim of size ``dim`` that the rank
+    at ``coord`` holds under one spec entry (row-major over its axes)."""
+    idx, n = 0, 1
+    for a in spec_axes(entry):
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    return idx * (dim // n), dim // n
+
+
 def cache_shardings(
     caches: Any,
     mesh,
@@ -293,13 +327,19 @@ def cache_shardings(
 ) -> Any:
     """Decode caches: batch dim over data axes; if batch is unshardable
     (long-context batch=1), shard the sequence dim over the model axis (cache
-    sequence-parallelism) — and over everything for 500k caches."""
+    sequence-parallelism) — and over everything for 500k caches.
+
+    A ``*_stack`` list of per-layer caches (this package's layout of the
+    reference's stacked ``[L, ...]`` leaves) is decided on the stacked
+    shape, as the reference sees it, and each layer's leaf gets a
+    :class:`StackedSharding`: dim 0 of the stacked leaf is then the layers,
+    so where the data axes divide L they split the layers, and otherwise a
+    long sequence dim goes over every axis (the batch stays whole)."""
     sizes = axis_sizes(mesh)
     dsize = math.prod(sizes[a] for a in data_axes)
     msize = sizes[model_axis]
 
-    def spec(leaf):
-        shape = tuple(leaf.shape)
+    def spec(shape: tuple[int, ...]) -> PartitionSpec:
         nd = len(shape)
         parts: list = [None] * nd
         if nd >= 1 and shape[0] % dsize == 0 and shape[0] >= dsize:
@@ -318,9 +358,19 @@ def cache_shardings(
                 if shape[i] >= 16_384 and shape[i] % msize == 0:
                     parts[i] = model_axis
                     break
-        return NamedSharding(mesh, P(*parts))
+        return P(*parts)
 
-    return _map(spec, caches)
+    def stacked(layers: list) -> list:
+        one = layers[0]
+        specs = [spec((len(layers), *leaf.shape)) for leaf in one]
+        return [type(one)(*(StackedSharding(mesh, sp, i, len(layers)) for sp in specs))
+                for i in range(len(layers))]
+
+    if isinstance(caches, dict):
+        return {k: (stacked(v) if k.endswith("_stack") and isinstance(v, list)
+                    else _map(lambda leaf: NamedSharding(mesh, spec(tuple(leaf.shape))), v))
+                for k, v in caches.items()}
+    return _map(lambda leaf: NamedSharding(mesh, spec(tuple(leaf.shape))), caches)
 
 
 def _map(fn, tree: Any) -> Any:

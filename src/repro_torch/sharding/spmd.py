@@ -29,6 +29,9 @@ state is DTensors, their placements those of ``rules.placements``, used as
 containers only (``from_local``, ``to_local``): DTensor's own collectives
 never return over gloo with CUDA tensors, so :func:`to_spec`,
 :func:`place` and :func:`full_tensor` move shards with the functions here.
+Every collective goes through ``torch.distributed``'s ops, so
+``roofline.analysis.record_collectives`` sees each one (one per mesh axis
+of a multi-axis reduce or gather) with its output bytes.
 """
 
 from __future__ import annotations
@@ -160,6 +163,18 @@ def all_max(x: torch.Tensor, spmd: Spmd, axes) -> torch.Tensor:
         return x
     with torch.no_grad():
         return _gather(x.unsqueeze(0), spmd, axes, 0).amax(0)
+
+
+def combine_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, spmd: Spmd,
+                    axes) -> torch.Tensor:
+    """Softmax-weighted values from partial results over disjoint sets of
+    keys on the ranks of ``axes``: each rank's row max ``m`` [...], sum of
+    ``exp(score - m)`` ``l`` [...] and values weighted by those terms ``o``
+    [..., d] (a rank with no keys gives -inf, 0 and 0). Returns sum(o) /
+    sum(l) with every part rescaled to the global max."""
+    mx = all_max(m, spmd, axes)
+    scale = torch.exp(m - mx)
+    return all_reduce(o * scale[..., None], spmd, axes) / all_reduce(l * scale, spmd, axes)[..., None]
 
 
 # ----------------------------------------------------------- shards by spec

@@ -31,6 +31,7 @@ core/simulate.py core/space_backends/__init__.py core/space_backends/anneal.py
 core/space_backends/base.py core/space_backends/exact.py
 core/time_backends/__init__.py core/time_backends/base.py
 core/time_backends/cp_backend.py core/time_smt.py daemon.py obs/__init__.py
+roofline/report.py
 """.split())
 
 #: modules of the reference's layout that the port rewrites, and why
@@ -109,3 +110,29 @@ def test_differing_module_really_differs(module):
     mine = _tree(os.path.join(_SRC, "repro_torch", module))
     ref = _tree(os.path.join(_SRC, "repro", module))
     assert mine != ref, f"{module} is a copy again: move it to COPIES"
+
+
+def test_report_renders_as_the_reference():
+    """One set of dry-run result rows (both packages write the same keys)
+    renders to the same tables and summary through either package."""
+    from repro.roofline import report as ref
+    from repro_torch.roofline import report as mine
+
+    def row(arch, shape, mesh, t, bottleneck, mfu, ok=True):
+        return {"arch": arch, "shape": shape, "mesh": mesh, "ok": ok,
+                "t_compute": t[0], "t_memory": t[1], "t_collective": t[2],
+                "bottleneck": bottleneck, "useful_flops_ratio": 0.61,
+                "mfu_upper_bound": mfu, "arg_bytes_per_dev": 3 * 2**30,
+                "temp_bytes_per_dev": 2**29,
+                "collectives": {"all-reduce": 2**31, "all-gather": 5 * 2**28}}
+
+    rows = [row("qwen3-0.6b", "train_4k", "16x16", (0.25, 1.03, 0.34), "memory", 0.0123),
+            row("qwen3-0.6b", "decode_32k", "2x16x16", (7e-6, 3.4e-3, 1.2e-2), "collective",
+                0.0004),
+            row("deepseek-v3-671b", "train_4k", "2x16x16", (2.5, 0.5, 1e-4), "compute", 0.31),
+            {"arch": "hymba-1.5b", "shape": "long_500k", "mesh": "16x16", "ok": False}]
+    for mesh in ("16x16", "2x16x16"):
+        assert mine.roofline_table(rows, mesh) == ref.roofline_table(rows, mesh)
+        assert mine.collective_detail(rows, mesh) == ref.collective_detail(rows, mesh)
+    assert mine.summary(rows) == ref.summary(rows)
+

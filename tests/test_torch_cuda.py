@@ -17,8 +17,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.cgra_sim import cgra_sim, cgra_sim_torch
 from repro_torch.kernels.flash_attention import (
     _FlashAttention, flash_attention, flash_attention_backward,
-    flash_attention_backward_torch, flash_attention_lse, flash_attention_padded,
-    flash_attention_torch,
+    flash_attention_backward_torch, flash_attention_flops, flash_attention_lse,
+    flash_attention_padded, flash_attention_torch,
 )
 from repro_torch.kernels.ops import cgra_run, compile_program
 from repro_torch.kernels.ref import cgra_sim_reference
@@ -27,6 +27,7 @@ from repro_torch.launch import train
 from repro_torch.launch.serve import prefill_batch, serve_batch
 from repro_torch.models import attention, build_model
 from repro_torch.optim import AdamWConfig
+from repro_torch.roofline.analysis import measure_step
 from repro_torch.tree import leaves, unflatten
 
 pytestmark = pytest.mark.gpu
@@ -785,3 +786,34 @@ def test_placed_state_round_trips_on_the_card(nccl_mesh):
         save(ckpt, 1, {"x": d})
         back = restore(ckpt, 1, {"x": x}, {"x": sh})
     assert torch.equal(full_tensor(back["x"]), x)
+
+
+@pytest.mark.parametrize("dtype,d,window", [(torch.bfloat16, 128, None),
+                                            (torch.bfloat16, 64, 96), (torch.float32, 64, None)])
+def test_flash_meta_path_mirrors_the_kernel(cuda, dtype, d, window):
+    """On meta tensors the forward, its log-sum-exp and the backward give
+    what the kernels give on the card in shape and dtype, launch nothing,
+    and report ``flash_attention_flops`` (2.5x for the backward)."""
+    b, hq, hkv, s = 2, 8, 2, 256
+    g = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn((b, h, s, d), generator=g).to(cuda, dtype) for h in (hq, hkv, hkv))
+    out, lse = flash_attention_lse(q, k, v, sm_scale=d ** -0.5, window=window)
+    dq, dk, dv = flash_attention_backward(q, k, v, lse, out, sm_scale=d ** -0.5,
+                                          window=window)
+    meta = [t.to("meta") for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention.backward_launches)
+
+    def step(q, k, v):
+        mo, ml = flash_attention_lse(q, k, v, sm_scale=d ** -0.5, window=window)
+        return (mo, ml, *flash_attention_backward(q, k, v, ml, mo, sm_scale=d ** -0.5,
+                                                  window=window))
+
+    c = measure_step(step, *meta)
+    assert (flash_attention.launches, flash_attention.backward_launches) == before
+    for got, want in zip(c.result, (out, lse, dq, dk, dv)):
+        assert got.device.type == "meta"
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    fwd = flash_attention_flops(b, hq, s, d, window=window)
+    assert fwd == 4 * b * hq * d * sum(min(i + 1, window or s) for i in range(s))
+    assert c.flops == fwd + flash_attention_flops(b, hq, s, d, window=window, backward=True)
+

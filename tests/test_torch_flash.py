@@ -141,9 +141,13 @@ def test_wrapper_keeps_the_reference_validation():
     with pytest.raises(ValueError, match="not divisible by blocks"):
         flash_attention(q, k, v, block_kv=64)
     assert flash_attention(q, k, v, block_q=200, block_kv=200).shape == q.shape
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), block_q=200,
-                        block_kv=200)
+    # meta tensors (the dry-run's) take the same validation, then the meta
+    # path: an empty output of q's shape and dtype
+    with pytest.raises(ValueError, match="not divisible by blocks"):
+        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), block_q=200,
+                          block_kv=200)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
 
 
 def test_kernel_request_raises_without_the_toolkit():

@@ -362,6 +362,28 @@ def test_sharded_path_runs_without_jax_or_the_jax_package():
     assert "SHARDED_PATH_OK" in proc.stdout
 
 
+def test_dryrun_runs_without_jax_or_the_jax_package(tmp_path):
+    """A dry-run cell (fake process group, meta tensors) and the report of
+    its result import nothing of JAX or the JAX package."""
+    code = f"""
+import sys
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.roofline.report import load_results, roofline_table
+run_cell("qwen3-0.6b", "decode_32k", False, {str(tmp_path)!r}, mesh_shape=(2, 2),
+         reduced=True)
+assert "| qwen3-0.6b | decode_32k |" in roofline_table(load_results({str(tmp_path)!r}), "2x2")
+bad = [m for m in sys.modules
+       if (m.split(".")[0] in ("jax", "jaxlib", "repro")) and sys.modules[m] is not None]
+assert not bad, bad
+print("DRYRUN_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "DRYRUN_OK" in proc.stdout
+
+
 _SOURCES = sorted(
     [p for p in (ROOT / "src" / "repro_torch").rglob("*")
      if p.suffix in (".py", ".cu", ".cuh")]

@@ -7,7 +7,9 @@ layout, where each ``*_stack`` leaf ``[L, ...]`` is a list of L per-layer
 leaves. For every config and mesh, every leaf's spec equals the
 reference's, a per-layer leaf's with the stack entry dropped. Also: the
 rule table's cases of tests/test_substrate.py:214, ``best_mesh_shape``'s of
-:178, batch, cache and ZeRO-1 moment specs, and DTensor placements.
+:178, batch, cache and ZeRO-1 moment specs, the decoder LMs' per-layer
+decode caches under the reference's specs for its stacked caches, and
+DTensor placements.
 """
 
 import jax
@@ -24,6 +26,8 @@ from repro.runtime import best_mesh_shape as jbest_mesh_shape
 from repro.sharding import batch_shardings as jbatch_shardings
 from repro.sharding import cache_shardings as jcache_shardings
 from repro.sharding import param_shardings as jparam_shardings
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
 from repro_torch.optim import build_opt_shardings
 from repro_torch.runtime import best_mesh_shape
 from repro_torch.sharding import (
@@ -250,3 +254,55 @@ def test_placements_of_specs():
     assert placements(P(), mesh) == (Replicate(),) * 3
     with pytest.raises(ValueError):
         placements(P(("model", "data")), mesh)      # not in the mesh's order
+
+
+DECODE_CASES = [(arch, shape.name) for arch in ("qwen3-0.6b", "gemma2-9b", "deepseek-moe-16b",
+                                                "deepseek-v3-671b", "paligemma-3b")
+                for shape in get_config(arch).shapes() if shape.kind == "decode"]
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch,shape_name", DECODE_CASES)
+def test_stacked_cache_specs_equal_the_reference(arch, shape_name, mesh_name):
+    """Each layer of the port's per-layer caches carries the reference's
+    spec for its stacked cache ``[L, ...]`` (dim 0 the layers), and the
+    last rank's slice of it: its layers' slots where the data axes split
+    the layers (none of the others), its slots of every layer where they
+    split the sequence."""
+    cfg = get_config(arch)
+    shape = next(x for x in cfg.shapes() if x.name == shape_name)
+    sizes, names = MESHES[mesh_name]
+    size = dict(zip(names, sizes))
+    jmesh, mesh = JAbstractMesh(sizes, names), AbstractMesh(sizes, names)
+    data = tuple(a for a in names if a != "model")
+    b, n = shape.global_batch, shape.seq_len
+    jcaches = jax.eval_shape(lambda: jbuild_model(jget_config(arch)).make_caches(None, b, n))
+    want = jcache_shardings(jcaches, jmesh, data)
+    caches = build_model(cfg).make_caches({"embed": torch.empty((), device="meta")}, b, n)
+    got = cache_shardings(caches, mesh, data)
+    assert sorted(got) == sorted(want)
+    last = {a: k - 1 for a, k in size.items()}
+
+    def count(entry):
+        out = 1
+        for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+            out *= size[a]
+        return out
+
+    for stack, layers in got.items():
+        leaf = caches[stack][0][0]
+        seq_dim = leaf.dim() - 2
+        spec = tuple(layers[0][0].spec)
+        held = leaf.shape[seq_dim] // count(spec[1 + seq_dim])
+        mine = len(layers) // count(spec[0])      # the last rank's layers: the last ones
+        for i, layer in enumerate(layers):
+            for sh, w in zip(layer, want[stack]):
+                assert (sh.layer, sh.layers) == (i, len(layers))
+                assert tuple(sh.spec) == tuple(w.spec), (stack, sh.spec, w.spec)
+            parts = layer[0].local_slices(tuple(leaf.shape), last)
+            if i < len(layers) - mine:
+                assert parts is None, (stack, i, parts)
+                continue
+            assert parts[seq_dim] == (leaf.shape[seq_dim] - held, held), (stack, parts)
+            assert all(pt == (0, d) for k, (pt, d) in enumerate(zip(parts, leaf.shape))
+                       if k != seq_dim)
