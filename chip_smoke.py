@@ -23,7 +23,9 @@ flash kernels, the encoder and cross-attention on the scores path) at full
 width and depth; train qwen3-0.6b sharded on torch.distributed meshes and
 deepseek-moe-16b's cut expert-parallel, several ranks on the one card;
 serve qwen3-0.6b sharded, run the dry-run and hold a training step
-against its roofline — and
+against its roofline; serve gemma2-9b at full width and depth (softcapped,
+alternately windowed GQA attention at D 256 in the flash kernel) and train
+a 4-layer cut of it through the D 256 tensor-core backward — and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device: requires CUDA and prints the card's name and power limit;
@@ -65,16 +67,22 @@ fails (non-zero exit, no result line) if any phase fails:
    ``flash_attention_torch``, on every case of phase 6 (the padded one
    through autograd of ``flash_attention_padded``; hymba's GQA-5 shape
    with window 1024 and global, bf16 and f32, among them), bf16 and f16
-   at D 64 and 128 with GQA groups 1, 2 and 4, window, softcap, S below one tile
-   and a ragged S, the training shape, the tensor-core forward and
-   backward as the first CUDA work of a fresh host thread (the same bits
-   as on the main thread), and the q, k, v and d out that
+   at D 64, 128 and 256 with GQA groups 1, 2 and 4, window, softcap, S
+   below one tile and a ragged S, the training shape, the tensor-core
+   forward and backward as the first CUDA work of a fresh host thread (the
+   same bits as on the main thread), and the q, k, v and d out that
    layers 0 and 27 see in one bf16 training step of phase 10's model;
    within 2e-5 (f32) / 2e-2 (bf16, f16) of each gradient's max |g|; the
    forward's log-sum-exp against the plain one; each case checks which
-   backward ran (tensor cores for bf16/f16 at D 64 and 128, CUDA cores
-   otherwise), that the autograd Function gives the same gradients and
-   that the tensor-core backward gives the same bits twice;
+   backward ran (tensor cores for bf16/f16 at D 64, 128 and 256, CUDA
+   cores otherwise), that the autograd Function gives the same gradients
+   and that the tensor-core backward gives the same bits twice. Then
+   gemma2-27b's layer (D 128, 32 q / 16 kv heads, scale 144^-0.5) and
+   gemma2-9b's (D 256, 16 / 8, 256^-0.5), softcap 50 and window 4096 on
+   4352 positions, with queries and keys that share a mean 16 and 32 times
+   their spread: every gradient of the tensor-core backward within 1e-2 of
+   its max |g| of the plain version in f32 (the softcapped dq's epilogue
+   takes out dS's rounding errors);
 10. training path at full width: qwen3-0.6b (bf16, remat) trains 8 steps
    of batch 4 x 2048 through ``launch.train``'s ``make_state`` /
    ``make_step`` and ``runtime.run_training`` (AdamW at the CLI's
@@ -121,7 +129,7 @@ fails (non-zero exit, no result line) if any phase fails:
    loops traced by ``repro_torch.core.frontend.trace_loop`` (a
    multiply-accumulate, whose stores equal a numpy running sum, a mixed-op
    body and one with every overloaded operator) mapped on 20x20 and executed
-   at the same size. ``random_dfg`` seeds 0-203 on ``tests/
+   at the same size. ``random_dfg`` seeds 0-101 on ``tests/
    test_differential.py``'s three fabrics, mapped deterministically by the
    exact engine and executed at 4096 x 32: each trace equals the plain
    version and 8 lanes the oracle. ``examples/pipeline_placement_torch.py``.
@@ -164,14 +172,15 @@ fails (non-zero exit, no result line) if any phase fails:
    the global one. In f32 at batch 1 x 2048, the prefill logits of the
    kernel path against the plain-attention path, and a prefill plus one
    decode step against a prefill one token longer (1e-4: the SSD state and
-   the offset KV cache carry). 4 training steps of 4 x 2048 (bf16, remat,
+   the offset KV cache carry). 2 training steps of 4 x 2048 (bf16, remat,
    AdamW, make_state / make_step): finite losses, 64 tensor-core forward
    launches (pass and recompute) and 32 tensor-core backward launches a
-   step; a fifth step profiled. Then xlstm-125m (12 layers, d 768, 4
+   step; a third step profiled. Then xlstm-125m (12 layers, d 768, 4
    heads, mLSTM / sLSTM alternating, vocab 50304, 112.7 M parameters) the
-   same way without attention: served, timed and profiled at full depth,
-   2 training steps of a 4-layer cut (its step is host-bound: one launch
-   per op of the recurrence). Its f32 state carry: within 1e-4 after a 32-token prompt, and
+   same way without attention at prompt 1024: served, timed and its
+   decode profiled at full depth, 2 training steps of a 2-layer cut (one
+   mLSTM, one sLSTM; its step is host-bound: one launch per op of the
+   recurrence). Its f32 state carry: within 1e-4 after a 32-token prompt, and
    after the 2048-token prompt within 10x of the rounding floor (the same
    prefill with every embedding moved by one ulp), since its random-weight
    recurrence amplifies f32 rounding ~1e5-fold over 2048 steps.
@@ -253,6 +262,30 @@ fails (non-zero exit, no result line) if any phase fails:
    not beat the count's roofline bound, and the predicted peak must be
    within 0.7-1.3x of the card's over the state's start; the bound over
    the measured time is the whole step's roofline share.
+19. gemma2-9b at full width and depth (42 layers, d 3584, 16 q / 8 kv
+   heads of D 256, GeGLU d_ff 14336, vocab 256000, sandwich norms, tied and
+   scaled embeddings, attention softcap 50, final softcap 30, window 4096
+   on the even layers, bf16, seeded random weights, 9.242 B parameters)
+   serves 8 requests in batches of 4 (prompt 6144, longer than the window,
+   32 tokens) through ``serve_batch``: exactly 42 flash launches a
+   prefill, all on the tensor-core forward at D 256 and GQA group 2, each
+   layer's call with its window and the softcap; two prefills identical;
+   the kernel against its plain version on layers 0 (local), 1 (global)
+   and 41's prefill q/k/v (2e-2); prefill and decode timed and profiled;
+   the flash forward timed at (4, 16, 8, 6144, 256) beside its bound and
+   scaled_dot_product_attention, and with window 4096. In f32 at 2 layers
+   (1 local + 1 global) and batch 1 x 6144, prefill and 8 teacher-forced
+   decode steps through the kernel path against the plain-attention path
+   (1e-4). 3 training steps of a 4-layer cut (2 local, 2 global) at full
+   width, 1 x 8192 tokens (bf16, remat, AdamW, make_state / make_step):
+   finite losses, 8 tensor-core forward and 4 tensor-core backward
+   launches a step, one step profiled, peak memory beside the dry-run's
+   prediction; the forward (2e-2) and the D 256 tensor-core backward (2e-2
+   of each max |g|, the same bits twice) against their plain versions on
+   the q, k, v and d out of the cut's layers 0 and 1 in one such step; the
+   backward timed at (1, 16, 8, 8192, 256) beside its bound and the
+   backward of scaled_dot_product_attention, and with window 4096 and
+   softcap 50.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -416,8 +449,9 @@ DAEMON_START_S = 60.0      # the daemon must answer ping within this
 DAEMON_REQUEST_S = 300.0   # a client's socket timeout
 # the traced multiply-accumulate against a numpy running sum of a*b in f32
 MAC_RTOL = 1e-5
-# tests/test_differential.py's fabrics and deterministic mapper budgets
-FUZZ_SEEDS = 204
+# tests/test_differential.py's fabrics and deterministic mapper budgets;
+# seeds 0-101 of the harness's 0-203 (cut to pay for phase 19's time)
+FUZZ_SEEDS = 102
 FUZZ_FABRICS = (("mesh3x3", dict(rows=3, cols=3)),
                 ("torus4x4", dict(rows=4, cols=4, topology="torus")),
                 ("onehop4x4", dict(rows=4, cols=4, topology="one-hop")))
@@ -454,11 +488,12 @@ HY_WINDOW = 1024
 # and 9, at the serve batch in phase 15's timing
 HY_SHAPE = (SERVE_BATCH, 25, 5, SERVE_PROMPT + 128, 64)
 HY_CASE = (1, *HY_SHAPE[1:])
-HY_TRAIN_STEPS = 4
+HY_TRAIN_STEPS = 2          # cut from 4 to pay for phase 19's time
 XL_ARCH = "xlstm-125m"
 XL_PARAMS = 112_730_880
 XL_TRAIN_STEPS = 2
-XL_TRAIN_LAYERS = 4       # its training cut (serving stays at full depth)
+XL_TRAIN_LAYERS = 2       # its training cut, one mLSTM and one sLSTM layer
+XL_PROMPT = 1024          # its serving prompt (a prefill is ~124,000 launches a 1024)
 # xLSTM's f32 state carry at 1e-4: after a prompt this long (rounding of
 # ~1e-7 grows to ~2e-5 of a logit by position 32 and ~9e-3 by 2048, in the
 # JAX package's model as in this one, measured on a CPU host); over the
@@ -515,6 +550,32 @@ SV_F32_LAYERS = 2
 SV_F32_STEPS = 8
 SV_F32_TOL = 1e-4                # of max |logit|, f32, 2x2 against one rank
 SV_RANK_BATCHES = 1              # the 2x2 ranks' bf16 batches (gloo-bound, ~40 s each)
+# phase 19: gemma2-9b. The prompt is longer than the local layers' window,
+# so that their mask bites in the prefill and in decode
+G2_ARCH = "gemma2-9b"
+G2_PARAMS = 9_241_705_984
+G2_WINDOW = 4096
+G2_PROMPT = 6144
+# the flash kernel's shape at gemma2-9b's prefill: GQA group 2, D 256
+G2_SHAPE = (SERVE_BATCH, 16, 8, G2_PROMPT, 256)
+G2_F32_LAYERS = 2          # 1 local + 1 global, full width, f32, batch 1
+G2_F32_STEPS = 8           # teacher-forced decode steps
+# training: a cut of 4 of the 42 layers (2 local, 2 global) at full width,
+# one sequence of 8192 (the window bites): ~1.71 B parameters, bf16
+# weights and gradients 6.8 GB, f32 moments 13.7 GB, f32 logits over vocab
+# 256000 8.4 GB a copy
+G2_TRAIN_LAYERS = 4
+G2_TRAIN_BATCH = 1
+G2_TRAIN_SEQ = 8192
+G2_TRAIN_STEPS = 3
+# the backward at gemma2-9b's training shape, timed beside SDPA's
+G2_BWD_SHAPE = (G2_TRAIN_BATCH, 16, 8, G2_TRAIN_SEQ, 256)
+# queries and keys sharing a mean this many times their spread, softcap 50,
+# window 4096 on a sequence past it: gemma2-27b's layer (D 128, 32 / 16
+# heads, scale 144^-0.5) and gemma2-9b's (D 256, 16 / 8, 256^-0.5)
+SHARED_MEAN_RATIOS = (16.0, 32.0)
+SHARED_MEAN_SEQ = 4352
+SHARED_MEAN_TOL = 1e-2
 DRY_CELLS = (("qwen3-0.6b", "train_4k", False), ("qwen3-0.6b", "train_4k", True),
              ("deepseek-v3-671b", "decode_32k", True))
 DRY_TIMEOUT_S = 300
@@ -894,20 +955,20 @@ def time_serve_steps(spec, params, prompts: np.ndarray,
     return prefill_ms, (time.perf_counter() - t0) * 1e3 / (gen - 1)
 
 
-def profile_serve(spec, params, prompts: np.ndarray) -> None:
-    """Where the serving time goes: a torch.profiler window over one prefill,
-    then one over 4 decode steps. Prints each window's host time, the
-    device's busy share (kernel time over host time), its kernel launches
-    and its top kernels. Only the
-    device's activity is recorded: the kernels are all it reads, and the
-    operator events of xlstm-125m's quarter-million launches take minutes
-    to sort."""
+def profile_serve(spec, params, prompts: np.ndarray, prefill: bool = True) -> None:
+    """Where the serving time goes: a torch.profiler window over one prefill
+    (with ``prefill``; else the prefill runs outside any window), then one
+    over 4 decode steps. Prints each window's host time, the device's busy
+    share (kernel time over host time), its kernel launches and its top
+    kernels. Only the device's activity is recorded: the kernels are all it
+    reads, and the operator events of xlstm-125m's quarter-million launches
+    take minutes to sort."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     state = {}
 
-    def prefill():
+    def run_prefill():
         state["logits"], state["caches"] = spec.prefill(
             params, prefill_input(spec, prompts), cache_len_for(prompts.shape[1]))
 
@@ -917,7 +978,10 @@ def profile_serve(spec, params, prompts: np.ndarray) -> None:
             state["logits"], state["caches"] = spec.decode_step(
                 params, tok, state["caches"], decode_pos(spec, i, prompts.shape[1]))
 
-    for label, fn in (("prefill", prefill), ("4 decode steps", decode)):
+    windows = [("prefill", run_prefill)] if prefill else []
+    if not prefill:
+        run_prefill()
+    for label, fn in windows + [("4 decode steps", decode)]:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -960,15 +1024,19 @@ def teacher_forced_logits(spec, params, prompts: np.ndarray, forced: np.ndarray,
     return out
 
 
-def check_prefill_activations(spec, params, prompts: np.ndarray,
-                              layers: tuple | None = None) -> float:
+def check_prefill_activations(spec, params, prompts: np.ndarray, layers: tuple | None = None,
+                              want_kw: dict | None = None) -> float:
     """The kernel on the q/k/v that ``layers`` (default: the first and the
     last) give it in a bf16 prefill of ``prompts``, with their keywords,
-    against its plain version (2e-2); returns the largest |kernel - plain|."""
+    against its plain version (2e-2); returns the largest |kernel - plain|.
+    ``want_kw`` maps a layer to keywords its call must have been given."""
     layers = layers or (0, spec.cfg.num_layers - 1)
     with captured_attention(layers) as seen:
         spec.prefill(params, prefill_input(spec, prompts), cache_len_for(prompts.shape[1]))
     check(sorted(seen) == list(layers), f"captured layers {sorted(seen)}, not {layers}")
+    for layer, want in (want_kw or {}).items():
+        got = {key: seen[layer]["kw"].get(key) for key in want}
+        check(got == want, f"layer {layer}'s flash call had {got}, not {want}")
     return max(check_fwd_activations(f"layer {layer} bf16 prefill", e["q"], e["k"], e["v"],
                                      e["kw"])
                for layer, e in sorted(seen.items()))
@@ -1085,11 +1153,12 @@ def flash_bound(shape, itemsize: int, window: int | None = None) -> tuple[float,
 
 
 def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
-                       f32: bool = True, window: int | None = None) -> dict:
+                       f32: bool = True, window: int | None = None,
+                       plain: bool = True) -> dict:
     """The kernel at ``shape`` (bf16, causal, ``window``) in turns with
     ``scaled_dot_product_attention`` (kernel, sdpa, kernel, sdpa; without a
-    window only: sdpa has none), then its plain version and, with ``f32``,
-    the CUDA-core kernel on the same shape in f32."""
+    window only: sdpa has none), then, with ``plain``, its plain version
+    and, with ``f32``, the CUDA-core kernel on the same shape in f32."""
     q, k, v = qkv(shape, torch.bfloat16, seed=1)
     kernel_ms, library_ms = [], []
     for _ in range(2):
@@ -1102,7 +1171,8 @@ def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
     lib_ms = statistics.median(library_ms) if library_ms else None
     # one launch between the events, the host's enqueue gap included
     single_ms = time_ms(lambda: flash_attention(q, k, v, window=window), TIMED_RUNS)
-    plain_ms = time_ms(lambda: flash_attention_torch(q, k, v, window=window), 3)
+    plain_ms = (time_ms(lambda: flash_attention_torch(q, k, v, window=window), 3)
+                if plain else None)
     bound_ms, bound_by = flash_bound(shape, q.element_size(), window)
     b, hq, hkv, s_len, d = shape
     flops = flash_attention_flops(b, hq, s_len, d, window=window)
@@ -1110,7 +1180,8 @@ def phase_flash_timing(shape=SERVE_SHAPE, label: str = "serve shape",
             f"{', '.join(f'{t:.4f}' for t in library_ms)} ms" if library_ms else "")
     log(f"  {label} {list(shape)} bf16 causal{f' window {window}' if window else ''}, "
         f"tensor-core kernel: {', '.join(f'{t:.4f}' for t in kernel_ms)} ms{sdpa} "
-        f"(medians of {TIMED_RUNS} x {FLASH_INNER} back to back); plain {plain_ms:.3f} ms; "
+        f"(medians of {TIMED_RUNS} x {FLASH_INNER} back to back); plain "
+        f"{f'{plain_ms:.3f} ms' if plain else 'not timed'}; "
         f"bound {bound_ms:.4f} ms ({flops:.4g} FLOP) "
         f"by {bound_by}, {bound_ms / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s; "
         f"one launch alone between the events {single_ms:.4f} ms")
@@ -1132,14 +1203,14 @@ def flash_bwd_cases():
     """Phase 6's cases (the JAX flash sweep in f32 and bf16, D 192/256,
     f16, S 48, window 0, the ragged S through the padding path, hymba's
     GQA-5 shape with window 1024 and global in bf16 and f32), then the
-    tensor-core backward's head dims and options in bf16 and f16 (GQA
-    groups 1, 2 and 4, window, softcap, S below one tile, a ragged S that
-    the kernels see unpadded), then the training shape."""
+    tensor-core backward's head dims (64, 128 and 256) and options in bf16
+    and f16 (GQA groups 1, 2 and 4, window, softcap, S below one tile, a
+    ragged S that the kernels see unpadded), then the training shape."""
     for label, shape, dtype, opts in flash_cases():
         if label != "serve shape":
             yield label, shape, dtype, opts
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128):
+        for d in (64, 128, 256):
             yield f"GQA 1 D{d}", (2, 4, 4, 256, d), dtype, {}
             yield f"GQA 2 window 100 D{d}", (1, 8, 4, 384, d), dtype, {"window": 100}
             yield f"GQA 4 softcap 30 D{d}", (1, 8, 2, 256, d), dtype, {"softcap": 30.0}
@@ -1150,8 +1221,8 @@ def flash_bwd_cases():
 
 def tensor_core_bwd_path(dtype, d: int) -> bool:
     """Whether flash_attention_backward takes the tensor-core kernels (else
-    the CUDA-core ones): bf16/f16 at D 64 and 128."""
-    return dtype != torch.float32 and d in (64, 128)
+    the CUDA-core ones): bf16/f16 at D 64, 128 and 256."""
+    return dtype != torch.float32 and d in (64, 128, 256)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1169,16 +1240,20 @@ def grads_of(fn, q, k, v, do):
 
 
 def training_activations(arch: str = TRAIN_ARCH, batch_size: int = TRAIN_BATCH,
-                         seq: int = TRAIN_SEQ) -> list:
-    """(label, q, k, v, d out, keywords) of the first and the last layer's
-    flash call in one bf16 training step (loss and gradients) of ``arch``
-    on a batch of ``batch_size`` x ``seq`` (default: phase 10's model and
-    batch, layers 0 and 27)."""
+                         seq: int = TRAIN_SEQ, layers: tuple | None = None,
+                         num_layers: int | None = None) -> list:
+    """(label, q, k, v, d out, keywords) of ``layers``' flash calls (default:
+    the first and the last layer's) in one bf16 training step (loss and
+    gradients) of ``arch``, cut to ``num_layers`` if given, on a batch of
+    ``batch_size`` x ``seq`` (default: phase 10's model and batch, layers 0
+    and 27)."""
     cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     spec = build_model(cfg)
     params = spec.init(0, "cuda")
     batch = SyntheticLM(cfg, batch_size, seq, seed=0).batch_at(0, "cuda")
-    layers = (0, cfg.num_layers - 1)
+    layers = layers or (0, cfg.num_layers - 1)
     with captured_attention(layers) as seen:
         loss_and_grads(spec, params, batch)
     check(sorted(seen) == list(layers) and all("do" in e for e in seen.values()),
@@ -1306,15 +1381,60 @@ def check_fresh_thread() -> None:
             "thread's first CUDA work: the main thread's bits")
 
 
+def check_shared_mean(arch: str, ratio: float) -> None:
+    """The tensor-core backward on a layer of ``arch`` (gemma2: softcap 50,
+    its query scale, window 4096 on SHARED_MEAN_SEQ positions, its heads
+    and head dim) whose bf16 queries and keys share a mean ``ratio`` times
+    their spread: each gradient within SHARED_MEAN_TOL of its max |g| of the
+    plain version in f32. dq is the one at risk: a softcap leaves sum_j
+    dS_ij non-zero, and before the epilogue took out dS's rounding errors
+    there too, dq kept their sum times the keys' mean."""
+    cfg = get_config(arch)
+    b, hq, hkv, s_len, d = 1, cfg.num_heads, cfg.num_kv_heads, SHARED_MEAN_SEQ, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def shared(h):
+        mean = torch.randn((b, h, 1, d), generator=g, device="cuda") * ratio
+        return (0.25 * (mean + torch.randn((b, h, s_len, d), generator=g, device="cuda"))
+                ).to(torch.bfloat16)
+
+    q, k = shared(hq), shared(hkv)
+    v = torch.randn((b, hkv, s_len, d), generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, hq, s_len, d), generator=g, device="cuda").to(torch.bfloat16)
+    kw = dict(sm_scale=cfg.attn_scale, window=cfg.sliding_window, softcap=cfg.attn_softcap)
+    check(kw["softcap"] == 50.0 and kw["window"] < s_len, f"{arch}: softcap {kw['softcap']}, "
+          f"window {kw['window']} on {s_len} positions")
+    _, lse = flash_attention_lse(q, k, v, **kw)
+    tc_before = flash_attention.tensor_core_backward_launches
+    got = flash_attention_backward(q, k, v, lse, do, **kw)
+    check(flash_attention.tensor_core_backward_launches == tc_before + 1,
+          f"shared mean {arch}: not the tensor-core backward")
+    f32 = [t.float() for t in (q, k, v, do)]
+    _, lse32 = flash_attention_torch(*f32[:3], return_lse=True, **kw)
+    want = flash_attention_backward_torch(*f32[:3], lse32, f32[3], **kw)
+    errs = [rel_err(x, w) for x, w in zip(got, want)]
+    check(max(errs) <= SHARED_MEAN_TOL,
+          f"shared mean {ratio:g}x {arch}: dq/dk/dv {', '.join(f'{e:.3g}' for e in errs)} "
+          f"of max |g| from the plain f32 version (tol {SHARED_MEAN_TOL})")
+    log(f"  ok  {arch} layer, q and k sharing a mean {ratio:g}x their spread, "
+        f"{[b, hq, hkv, s_len, d]} bf16 softcap {kw['softcap']:g} window {kw['window']} scale "
+        f"{kw['sm_scale']:.4g} [tensor cores]: dq/dk/dv vs plain f32 "
+        f"{'/'.join(f'{e:.2g}' for e in errs)} of max |g| (tol {SHARED_MEAN_TOL})")
+
+
 def phase_flash_bwd() -> float:
-    """Every case of flash_bwd_cases on seeded inputs, the tensor-core
-    kernels in a fresh thread, then layers 0 and 27 of a training step.
-    Returns the largest |kernel - plain| seen."""
+    """Every case of flash_bwd_cases on seeded inputs, the softcapped
+    shared-mean cases at gemma2's layer shapes, the tensor-core kernels in
+    a fresh thread, then layers 0 and 27 of a training step. Returns the
+    largest |kernel - plain| seen."""
     worst = 0.0
     for label, shape, dtype, opts in flash_bwd_cases():
         q, k, v = qkv(shape, dtype)
         do = qkv(shape, dtype, seed=1)[0]
         worst = max(worst, check_bwd_case(label, q, k, v, do, opts))
+    for arch in ("gemma2-27b", G2_ARCH):
+        for ratio in SHARED_MEAN_RATIOS:
+            check_shared_mean(arch, ratio)
     check_fresh_thread()
     for label, q, k, v, do, kw in training_activations():
         worst = max(worst, check_bwd_case(label, q, k, v, do, kw))
@@ -1524,52 +1644,67 @@ def phase_train() -> int:
 
 # ----------------------------------------------------------------- phase 11
 
-def flash_bwd_bound(shape, itemsize: int) -> tuple[float, str]:
-    """Least time for the card at ``shape`` (causal): the five products of
-    the backward (2.5x the forward's FLOPs) over the bf16 tensor-core peak,
-    or q, k, v, d out and lse read and dq, dk, dv written once over HBM
-    bandwidth."""
+def flash_bwd_bound(shape, itemsize: int, window: int | None = None) -> tuple[float, str]:
+    """Least time for the card at ``shape`` (causal, ``window``): the five
+    products of the backward (2.5x the forward's FLOPs) over the bf16
+    tensor-core peak, or q, k, v, d out and lse read and dq, dk, dv written
+    once over HBM bandwidth."""
     b, hq, hkv, s_len, d = shape
-    flops = flash_attention_flops(b, hq, s_len, d, backward=True)
+    flops = flash_attention_flops(b, hq, s_len, d, window=window, backward=True)
     nbytes = (3 * b * hq + 4 * b * hkv) * s_len * d * itemsize + b * hq * s_len * 4
     by_ops = flops / BF16_TENSOR_OPS_PER_S * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def phase_flash_bwd_timing() -> dict:
-    """The tensor-core backward at the training shape in turns with the
-    backward of ``scaled_dot_product_attention`` through autograd (kernel,
-    sdpa, kernel, sdpa), then its plain version and the CUDA-core backward
-    on the same shape in f32."""
-    q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, seed=2)
-    do = qkv(TRAIN_SHAPE, torch.bfloat16, seed=3)[0]
-    kw = dict(sm_scale=TRAIN_SHAPE[-1] ** -0.5)
+def phase_flash_bwd_timing(shape=TRAIN_SHAPE, label: str = "training shape",
+                           f32: bool = True, window: int | None = None,
+                           softcap: float | None = None, plain: bool = True) -> dict:
+    """The tensor-core backward at ``shape`` (bf16, causal, ``window``,
+    ``softcap``) in turns with the backward of
+    ``scaled_dot_product_attention`` through autograd (kernel, sdpa,
+    kernel, sdpa; without a window or softcap only: sdpa takes neither),
+    then, with ``plain``, its plain version and, with ``f32``, the
+    CUDA-core backward on the same shape in f32."""
+    q, k, v = qkv(shape, torch.bfloat16, seed=2)
+    do = qkv(shape, torch.bfloat16, seed=3)[0]
+    kw = dict(sm_scale=shape[-1] ** -0.5, window=window, softcap=softcap)
     _, lse = flash_attention_lse(q, k, v, **kw)
-    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    with_sdpa = window is None and softcap is None
+    if with_sdpa:
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     tc_before = flash_attention.tensor_core_backward_launches
     kernel_ms, library_ms = [], []
     for _ in range(2):
         kernel_ms.append(time_ms(lambda: flash_attention_backward(q, k, v, lse, do, **kw),
                                  TIMED_RUNS, BWD_INNER))
-        library_ms.append(time_ms(lambda: torch.autograd.grad(
-            sdpa_out, (ql, kl, vl), do, retain_graph=True), TIMED_RUNS, BWD_INNER))
+        if with_sdpa:
+            library_ms.append(time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (ql, kl, vl), do, retain_graph=True), TIMED_RUNS, BWD_INNER))
     check(flash_attention.tensor_core_backward_launches - tc_before
           == 2 * (1 + TIMED_RUNS * BWD_INNER), "the timed backward is not the tensor-core one")
     ms = statistics.median(kernel_ms)
-    lib_ms = statistics.median(library_ms)
-    plain_ms = time_ms(lambda: flash_attention_backward_torch(q, k, v, lse, do, **kw), 3)
-    bound_ms, bound_by = flash_bwd_bound(TRAIN_SHAPE, q.element_size())
-    b, hq, hkv, s_len, d = TRAIN_SHAPE
-    flops = 10 * b * hq * d * s_len * (s_len + 1) // 2
-    log(f"  training shape {list(TRAIN_SHAPE)} bf16 causal, tensor-core backward: "
-        f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms in turns with the backward of "
-        f"scaled_dot_product_attention {', '.join(f'{t:.4f}' for t in library_ms)} ms "
-        f"(medians of {TIMED_RUNS} x {BWD_INNER} back to back); plain {plain_ms:.3f} ms; "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3g} FLOP), {bound_ms / ms:.1%} of "
+    lib_ms = statistics.median(library_ms) if library_ms else None
+    plain_ms = (time_ms(lambda: flash_attention_backward_torch(q, k, v, lse, do, **kw), 3)
+                if plain else None)
+    bound_ms, bound_by = flash_bwd_bound(shape, q.element_size(), window)
+    b, hq, hkv, s_len, d = shape
+    flops = flash_attention_flops(b, hq, s_len, d, window=window, backward=True)
+    sdpa = (f" in turns with the backward of scaled_dot_product_attention "
+            f"{', '.join(f'{t:.4f}' for t in library_ms)} ms" if library_ms else "")
+    opts = "".join([f" window {window}" if window else "",
+                    f" softcap {softcap:g}" if softcap else ""])
+    log(f"  {label} {list(shape)} bf16 causal{opts}, tensor-core backward: "
+        f"{', '.join(f'{t:.4f}' for t in kernel_ms)} ms{sdpa} "
+        f"(medians of {TIMED_RUNS} x {BWD_INNER} back to back); plain "
+        f"{f'{plain_ms:.3f} ms' if plain else 'not timed'}; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP), {bound_ms / ms:.1%} of "
         f"bound, {flops / ms / 1e9:.1f} TFLOP/s of the bound's FLOP, "
         f"{1.8 * flops / ms / 1e9:.1f} of the 9 products done")
+    if not f32:
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     _, lse32 = flash_attention_lse(q32, k32, v32, **kw)
     f32_ms = time_ms(lambda: flash_attention_backward(q32, k32, v32, lse32, do32, **kw),
@@ -2357,10 +2492,12 @@ def phase_deepseek() -> tuple[int, int, float]:
 
 # ----------------------------------------------------------------- phase 15
 
-def family_serve(cfg, seed: int, prompt: int = SERVE_PROMPT) -> dict:
+def family_serve(cfg, seed: int, prompt: int = SERVE_PROMPT,
+                 profile_prefill: bool = True) -> dict:
     """Serve SERVE_REQUESTS prompts of ``prompt`` tokens in batches through
-    ``serve_batch``, time one batch's prefill and decode, profile them, and
-    check that two prefills of one batch give the same logits. Returns the
+    ``serve_batch``, time one batch's prefill and decode, profile them (the
+    prefill only with ``profile_prefill``), and check that two prefills of
+    one batch give the same logits. Returns the
     model, its parameter count, the first batch's prompts, and the flash
     launches of the serving run and of one prefill (with their tensor-core
     share)."""
@@ -2390,8 +2527,8 @@ def family_serve(cfg, seed: int, prompt: int = SERVE_PROMPT) -> dict:
         f"prefill {prefill_ms:.2f} ms per batch of {SERVE_BATCH} x {prompt}, decode "
         f"{decode_ms:.2f} ms per step; peak device memory {peak_gib:.2f} GiB")
     t0 = time.perf_counter()
-    profile_serve(spec, params, prompts)
-    log(f"  (the two profiles took {time.perf_counter() - t0:.1f} s with their processing)")
+    profile_serve(spec, params, prompts, prefill=profile_prefill)
+    log(f"  (the profiles took {time.perf_counter() - t0:.1f} s with their processing)")
     batch = prefill_input(spec, prompts)
     zero_flash_counts()
     first = spec.prefill(params, batch, cache_len_for(prompt))[0]
@@ -2496,13 +2633,30 @@ def family_f32(cfg, seed: int) -> None:
         f"that; a lost or misplaced state moves them by O(1))")
 
 
-def family_train(cfg, steps: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> tuple:
+def predicted_peak_gib(cfg, batch: int, seq: int) -> float:
+    """The training step's peak device memory as the dry-run counts it
+    (``roofline.analysis.measure_step`` of make_state / make_step on meta
+    tensors: the state, then every live intermediate), in GiB."""
+    from repro_torch.roofline.analysis import measure_step
+
+    spec = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=10)
+    state = make_state(spec, opt_cfg, 0, compression=False, device="meta")
+    tokens = torch.zeros((batch, seq), dtype=torch.int64, device="meta")
+    counts = measure_step(make_step(spec, opt_cfg, compression=False), state,
+                          {"tokens": tokens, "labels": tokens})
+    return counts.peak_bytes / 2**30
+
+
+def family_train(cfg, steps: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                 profile: bool | None = None) -> tuple:
     """``steps`` of ``batch`` x ``seq`` (a vlm's batch with its prefix
     embeddings, an audio model's with its frames) through make_state /
     make_step (AdamW at the training CLI's defaults, bf16, remat), then,
-    for hymba, one more step under torch.profiler (an xLSTM step is
-    ~1,000,000 launches); returns the flash launch counts of the ``steps``
-    (forward, tensor-core, backward, tensor-core backward)."""
+    with ``profile`` (default: for hymba), one more step under
+    torch.profiler (an xLSTM step is ~1,000,000 launches); returns the
+    flash launch counts of the ``steps`` (forward, tensor-core, backward,
+    tensor-core backward)."""
     spec = build_model(cfg)
     opt_cfg = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=max(10, steps // 20))
     data = SyntheticLM(cfg, batch, seq, seed=0)
@@ -2534,7 +2688,7 @@ def family_train(cfg, steps: int, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ
     log(f"  step times {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of steps "
         f"2-{steps} {ms:.2f} ms/step ({tokens / ms * 1e3:.0f} tokens/s); peak device memory "
         f"{peak_gib:.2f} GiB")
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" if profile is None else profile:
         profile_step(spec, opt_cfg, state, data.batch_at(steps, "cuda"))
     return counts
 
@@ -2582,7 +2736,9 @@ def phase_ssm_hybrid() -> tuple[int, int, float]:
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.vocab, cfg.ssm.chunk,
            cfg.dtype, cfg.remat) == (12, 768, 4, 0, 50304, 128, torch.bfloat16, True),
           f"{XL_ARCH} is not at full width and depth")
-    run = family_serve(cfg, seed=19)
+    # no profile of xlstm's prefill: its ~248,000 launches take ~40 s to
+    # trace and sort, and PRs 20-23 recorded its breakdown (host-bound)
+    run = family_serve(cfg, seed=19, prompt=XL_PROMPT, profile_prefill=False)
     check(run["n_params"] == XL_PARAMS, f"{XL_ARCH}: {run['n_params']} params")
     check(run["launches"] == run["one"] == 0, f"{XL_ARCH} launched flash attention")
     del run
@@ -3325,6 +3481,105 @@ def phase_sharded_serve(smi: str) -> int:
     return launches
 
 
+# ----------------------------------------------------------------- phase 19
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's expandable segments for the block, its
+    cache emptied before and after (PYTORCH_CUDA_ALLOC_CONF's setting, set
+    at run time so that the other phases keep the default)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def phase_gemma2() -> tuple[int, int, float, float]:
+    """gemma2-9b (see the module docstring, item 19). Returns the flash
+    forward and backward launches of the phase's serving and training
+    runs, and the largest |kernel - plain| of the forward (on the prefill
+    and training activations) and of the backward (on the training
+    activations)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(G2_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab, cfg.sliding_window, cfg.window_pattern, cfg.attn_softcap,
+           cfg.final_softcap, cfg.sandwich_norm, cfg.mlp_kind, cfg.tie_embeddings,
+           cfg.embed_scale, cfg.attn_scale, cfg.dtype, cfg.remat)
+          == (42, 3584, 16, 8, 256, 14336, 256000, G2_WINDOW, "alternating", 50.0, 30.0,
+              True, "geglu", True, True, 256.0 ** -0.5, torch.bfloat16, True),
+          f"{G2_ARCH} is not at full width and depth")
+    windows = lm.layer_windows(cfg, cfg.num_layers)
+    local = [i for i, w in enumerate(windows) if w]
+    check(local == list(range(0, cfg.num_layers, 2))
+          and set(windows.tolist()) == {0, G2_WINDOW}, f"{G2_ARCH} windows {windows}")
+    t0 = time.perf_counter()
+    run = family_serve(cfg, seed=25, prompt=G2_PROMPT)
+    check(run["n_params"] == G2_PARAMS, f"{G2_ARCH}: {run['n_params']} params")
+    check(run["launches"] == cfg.num_layers * run["batches"] and run["tc"] == run["launches"]
+          and run["one"] == run["one_tc"] == cfg.num_layers,
+          f"{G2_ARCH} serving: flash launches {run['launches']} ({run['tc']} tensor-core), "
+          f"one prefill {run['one']} ({run['one_tc']}); want {cfg.num_layers} a prefill, "
+          "all tensor-core")
+    # the first local layer, the first global one and the last (global)
+    layers = tuple(sorted({0, 1, cfg.num_layers - 1}))
+    want_kw = {i: {"window": G2_WINDOW if windows[i] else None, "softcap": cfg.attn_softcap}
+               for i in layers}
+    fwd_err = check_prefill_activations(run["spec"], run["params"], run["prompts"], layers,
+                                        want_kw)
+    serve_launches = run["launches"]
+    del run
+    free_device(f"{G2_ARCH} serving ({time.perf_counter() - t0:.1f} s with the init)")
+    # the plain versions are not timed here: at these shapes they take
+    # 0.6-2.4 s a call and time nothing the card's users run
+    for window in (None, G2_WINDOW):
+        phase_flash_timing(G2_SHAPE, f"{G2_ARCH} prefill shape", f32=False, window=window,
+                           plain=False)
+    f32_parity(dataclasses.replace(cfg, num_layers=G2_F32_LAYERS), 26, G2_PROMPT,
+               G2_F32_STEPS)
+    free_device(f"{G2_ARCH} f32 check")
+
+    train_cfg = dataclasses.replace(cfg, num_layers=G2_TRAIN_LAYERS)
+    predicted = predicted_peak_gib(train_cfg, G2_TRAIN_BATCH, G2_TRAIN_SEQ)
+    log(f"  {G2_ARCH} training cut: {G2_TRAIN_LAYERS} layers (windows "
+        f"{lm.layer_windows(train_cfg, G2_TRAIN_LAYERS).tolist()}), {G2_TRAIN_BATCH} x "
+        f"{G2_TRAIN_SEQ}; predicted peak {predicted:.2f} GiB (the dry-run's count on meta)")
+    # The step's f32 logits over vocab 256000 come and go in 7.8 GiB blocks
+    # whose sizes vary; in fixed segments they left 26.9 GiB reserved but
+    # unallocated, and the step ran out of memory at 47.7 GiB allocated.
+    # Segments that grow in place keep the reserve at what is in use.
+    with expandable_segments():
+        fwd, tc, bwd, tc_bwd = family_train(train_cfg, G2_TRAIN_STEPS, batch=G2_TRAIN_BATCH,
+                                            seq=G2_TRAIN_SEQ, profile=True)
+    # remat: each layer's forward runs twice a step (the pass and the recompute)
+    want = (2 * G2_TRAIN_LAYERS * G2_TRAIN_STEPS, G2_TRAIN_LAYERS * G2_TRAIN_STEPS)
+    check((fwd, bwd) == want and tc == fwd and tc_bwd == bwd,
+          f"{G2_ARCH} training: flash forward {fwd} ({tc} tensor-core), backward {bwd} "
+          f"({tc_bwd} tensor-core); want {want[0]} and {want[1]}, all tensor-core")
+    free_device(f"{G2_ARCH} training")
+    # the D 256 backward on what its first local and first global layer see
+    bwd_err = 0.0
+    with expandable_segments():
+        seen = training_activations(G2_ARCH, G2_TRAIN_BATCH, G2_TRAIN_SEQ, layers=(0, 1),
+                                    num_layers=G2_TRAIN_LAYERS)
+    for label, q, k, v, do, kw in seen:
+        fwd_err = max(fwd_err, check_fwd_activations(f"{G2_ARCH} {label}", q, k, v, kw))
+        bwd_err = max(bwd_err, check_bwd_case(f"{G2_ARCH} {label}", q, k, v, do, kw))
+    free_device(f"{G2_ARCH} training activations")
+    phase_flash_bwd_timing(G2_BWD_SHAPE, f"{G2_ARCH} training shape", f32=False, plain=False)
+    phase_flash_bwd_timing(G2_BWD_SHAPE, f"{G2_ARCH} training shape, local layer", f32=False,
+                           window=G2_WINDOW, softcap=cfg.attn_softcap, plain=False)
+    log(f"  phase 19 flash launches: forward {serve_launches + fwd} (serving "
+        f"{serve_launches}, training {fwd}), backward {bwd}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return serve_launches + fwd, bwd, fwd_err, bwd_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA GPU",
@@ -3414,8 +3669,8 @@ def main() -> int:
     log(f"[15] the SSM and hybrid families: {HY_ARCH} at full width and depth served "
         f"({SERVE_REQUESTS} requests, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
         f"{SERVE_GEN} tokens), the flash kernel at its prefill shapes, f32 checks, "
-        f"{HY_TRAIN_STEPS} training steps; {XL_ARCH} served, checked in f32, "
-        f"{XL_TRAIN_STEPS} training steps at {XL_TRAIN_LAYERS} layers")
+        f"{HY_TRAIN_STEPS} training steps; {XL_ARCH} served (prompt {XL_PROMPT}), checked in "
+        f"f32, {XL_TRAIN_STEPS} training steps at {XL_TRAIN_LAYERS} layers")
     hy_fwd, hy_bwd, hy_err = phase_ssm_hybrid()
 
     log(f"[16] the vision-language and audio families: {PG_ARCH} and {WH_ARCH} at full "
@@ -3435,6 +3690,13 @@ def main() -> int:
         f"caches); python -m repro_torch.launch.dryrun on {len(DRY_CELLS)} production "
         f"cells; phase 10's step against its roofline")
     sv_fwd = phase_sharded_serve(smi)
+
+    log(f"[19] {G2_ARCH} at full width and depth served ({SERVE_REQUESTS} requests, batch "
+        f"{SERVE_BATCH}, prompt {G2_PROMPT}, {SERVE_GEN} tokens), the flash kernel at its "
+        f"prefill shape, f32 at {G2_F32_LAYERS} layers, {G2_TRAIN_STEPS} training steps of a "
+        f"{G2_TRAIN_LAYERS}-layer cut at {G2_TRAIN_BATCH} x {G2_TRAIN_SEQ}, the D 256 "
+        f"backward on its activations and timed")
+    g2_fwd, g2_bwd, g2_err, g2_bwd_err = phase_gemma2()
     log(f"whole script: {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -3454,8 +3716,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd + sh_fwd + sv_fwd,
-        "max_abs_err": max(flash_err, ds_err, hy_err, va_err),
+        "launches": flash_launches + ds_fwd + hy_fwd + va_fwd + sh_fwd + sv_fwd + g2_fwd,
+        "max_abs_err": max(flash_err, ds_err, hy_err, va_err, g2_err),
         "ms": flash_row["ms"],
         "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"],
@@ -3466,8 +3728,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": bwd_launches + ds_bwd + hy_bwd + va_bwd + sh_bwd,
-        "max_abs_err": max(bwd_err, va_bwd_err),
+        "launches": bwd_launches + ds_bwd + hy_bwd + va_bwd + sh_bwd + g2_bwd,
+        "max_abs_err": max(bwd_err, va_bwd_err, g2_bwd_err),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],

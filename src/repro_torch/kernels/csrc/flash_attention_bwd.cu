@@ -35,22 +35,24 @@
 // ~170 MB of inputs and outputs in bf16, so operations: the products belong
 // on the bf16 tensor cores (989 TFLOP/s dense).
 //
-// 1. Tensor-core kernels: bf16 and f16 at D 64 and 128 (flash_attention_
-//    bwd_uses_tensor_cores). Deterministic, no atomics; the design does 9
-//    products of 2 D FLOP a (q, k) pair where the bound counts 5: 2 for
-//    an exact dQ without an f32 scratch, 2 for D (above).
+// 1. Tensor-core kernels: bf16 and f16 at D 64, 128 and 256 (flash_
+//    attention_bwd_uses_tensor_cores). Deterministic, no atomics; the design
+//    does 9 products of 2 D FLOP a (q, k) pair where the bound counts 5: 2
+//    for an exact dQ without an f32 scratch, 2 for D (above). The share of
+//    the work is tcb::Plan's.
 //    * flash_bwd_prep: one thread a row of [B * Hq, S_pad] (S rounded up to
 //      64): lse * log2 e with +inf for a fully masked row and for rows past
 //      S, so that P = exp2(c log2 e - lse2) is 0 there with no test, into a
 //      padded workspace that 256-byte bulk copies read.
-//    * flash_bwd_dkdv_tc: one block per (batch * kv head, 128 kv rows),
-//      kv blocks heaviest first. A producer warpgroup (setmaxnreg 24) whose
-//      first thread issues every load, and two consumer warpgroups of 64 kv
-//      rows each (240). K and V of the block's rows arrive once by TMA; Q
-//      and dO tiles of 64 query rows, with their 64 lse2 and D values (bulk
-//      copies), stream through a 2-stage ring with full/empty mbarriers,
-//      over every q head of the group and the q tiles the masks leave
-//      non-empty for the block. Per tile a consumer runs
+//    * flash_bwd_dkdv_tc at D 64 and 128: one block per (batch * kv head,
+//      128 kv rows), kv blocks heaviest first. A producer warpgroup
+//      (setmaxnreg 24) whose first thread issues every load, and two
+//      consumer warpgroups of 64 kv rows each (240). K and V of the block's
+//      rows arrive once by TMA; Q and dO tiles of 64 query rows, with their
+//      64 lse2 and D values (bulk copies), stream through a 2-stage ring
+//      with full/empty mbarriers, over every q head of the group and the q
+//      tiles the masks leave non-empty for the block. Per tile a consumer
+//      runs
 //        S^T = K Q^T and dP^T = V dO^T   (wgmma_ss, m64n64, K-major both),
 //        P^T and dS^T in registers       (lse2 and D by the fragment's column),
 //        dV += P^T dO and dK += dS^T Q   (wgmma_rs, m64nD, dO and Q MN-major),
@@ -61,28 +63,43 @@
 //      and released; only tiles that cross the diagonal, the window edge or
 //      S mask per element. Shared memory at D 128: K and V 64 KB, the ring
 //      2 x (16 + 16) KB, the rows 2 KB.
-//    * flash_bwd_dq_tc: one block per (batch * q head, 128 query rows),
-//      shaped like flash_fwd_tc: Q and dO arrive once, K and V tiles of 64
-//      keys stream through the ring twice. First sweep, per tile: S = Q K^T
-//      and dP = dO V^T (wgmma_ss), P in registers, D_i += P dP by row; then
-//      D goes to the padded workspace (0 past S) for flash_bwd_dkdv_tc,
-//      launched after. Second sweep, per tile: S and dP again, P and dS in
-//      registers (lse2 and D by row), dQ += dS K (wgmma_rs, K MN-major as
-//      the forward reads V).
+//    * flash_bwd_dkdv_tc at D 256, where that shape fits neither the block's
+//      227 KB (128 kv rows of K and V 128 KB, the ring 128 KB) nor a
+//      thread's 255 registers (dK and dV of 64 rows at D 256: 256 a
+//      thread): one block per (batch * kv head, 64 kv rows), K and V 64 KB,
+//      the ring of 64-row Q and dO tiles 128 KB; its two consumer
+//      warpgroups split D into halves (split_consume). S^T and dP^T are
+//      computed once, each warpgroup scoring half of the tile's queries
+//      (m64n32 over the full D); P^T and dS^T go through shared memory in
+//      16 bits (8 KB each), and each warpgroup adds its half of D, dV[:, h]
+//      += P^T dO[:, h] and dK[:, h] += dS^T Q[:, h] (wgmma from shared
+//      memory, m64n128): 64 + 64 accumulator registers a thread.
+//    * flash_bwd_dq_tc: one block per (batch * q head, 128 query rows; 64 at
+//      D 256 with one consumer warpgroup, whose dQ takes 128 registers a
+//      thread), shaped like flash_fwd_tc: Q and dO arrive once, K and V
+//      tiles of 64 keys stream through the ring twice. First sweep, per
+//      tile: S = Q K^T and dP = dO V^T (wgmma_ss), P in registers, D_i += P
+//      dP by row; then D goes to the padded workspace (0 past S) for
+//      flash_bwd_dkdv_tc, launched after. Second sweep, per tile: S and dP
+//      again, P and dS in registers (lse2 and D by row), dQ += dS K
+//      (wgmma_rs, K MN-major as the forward reads V).
 //    * Numerics: P^T and dS^T (dS) are rounded to the input type before
-//      their products, where the plain version keeps them in f32; without a
-//      softcap dQ's epilogue then takes out the rounded dS's row sums times
-//      the row's own key (dq_consume says why). Every sum stays f32
-//      (tests/test_torch_flash_grad.py holds a rounded copy of the
-//      algorithm against the JAX reference).
+//      their products, where the plain version keeps them in f32 (in
+//      registers, or at D 256 in shared memory for dK and dV); dQ's
+//      epilogue then takes out each row's sum of dS's rounding errors times
+//      the row's own key, with a softcap as without (dq_consume says why).
+//      Every sum stays f32 (tests/test_torch_flash_grad.py holds a rounded
+//      copy of the algorithm against the JAX reference).
 //    * Per tile, the two products that read a ring slot are issued as one
 //      group and waited for before the elementwise work; the other consumer
-//      warpgroup's products fill the tensor cores meanwhile.
+//      warpgroup's products fill the tensor cores meanwhile (at D 256 the
+//      two warpgroups of dkdv work in step, joined by named barriers, and
+//      dq has one).
 //
-// 2. CUDA-core kernels: f32 at every D, and bf16/f16 at D 32, 96, 160, 192,
-//    224 and 256 (at D 192 and 256 the f32 dK and dV accumulators of 64
-//    rows would need 192-256 registers a thread beside S and dP). Both
-//    products of a pair run as f32 FMAs, with FlashAttention-2's split:
+// 2. CUDA-core kernels: f32 at every D, and bf16/f16 at D 32, 96, 160, 192
+//    and 224 (D 192 splits into halves of 96 columns, which are not whole
+//    128-byte panels). Both products of a pair run as f32 FMAs, with
+//    FlashAttention-2's split:
 //    a. flash_bwd_dq: one block per (batch * q head, 64 query rows),
 //       heaviest first, looping twice over the 32-key tiles the forward
 //       would visit (causal upper bound, window lower bound): each warp owns
@@ -560,15 +577,26 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const float* lse, const void* dout, void* dq, void* dk, void* dv,
                      float* delta, int B, int Hkv, const Opts& o, cudaStream_t stream) {
+  // 16-bit inputs at D 64, 128 and 256 take the tensor-core kernels
+  // (flash_attention_bwd_uses_tensor_cores): no CUDA-core instance of those
+  constexpr bool IS_F32 = sizeof(T) == 4;
 #define FLASH_BWD_CASE(NC)                                                               \
   case NC * 32:                                                                          \
     return launch_typed<T, NC>(q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o, stream);
+#define FLASH_BWD_F32_CASE(NC)                                                           \
+  case NC * 32:                                                                          \
+    if constexpr (IS_F32) {                                                              \
+      return launch_typed<T, NC>(q, k, v, lse, dout, dq, dk, dv, delta, B, Hkv, o,       \
+                                 stream);                                                \
+    }                                                                                    \
+    return cudaErrorInvalidValue;
   switch (D) {
-    FLASH_BWD_CASE(1) FLASH_BWD_CASE(2) FLASH_BWD_CASE(3) FLASH_BWD_CASE(4)
-    FLASH_BWD_CASE(5) FLASH_BWD_CASE(6) FLASH_BWD_CASE(7) FLASH_BWD_CASE(8)
+    FLASH_BWD_CASE(1) FLASH_BWD_F32_CASE(2) FLASH_BWD_CASE(3) FLASH_BWD_F32_CASE(4)
+    FLASH_BWD_CASE(5) FLASH_BWD_CASE(6) FLASH_BWD_CASE(7) FLASH_BWD_F32_CASE(8)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FLASH_BWD_F32_CASE
 #undef FLASH_BWD_CASE
 }
 
@@ -583,34 +611,48 @@ using hopper::PANEL_COLS;
 using hopper::smem_addr;
 using hopper::sw128_desc;
 
-constexpr int WG_ROWS = 64;                     // owned rows per consumer warpgroup
-constexpr int CONSUMERS = 2;                    // consumer warpgroups
-constexpr int OWN = CONSUMERS * WG_ROWS;        // rows a block owns (kv, or query)
+constexpr int WG_ROWS = 64;                     // rows of one wgmma accumulator
 constexpr int TILE = 64;                        // rows of a streamed tile
-constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
-// Registers a thread after setmaxnreg, as in flash_fwd_tc: 128 x 24 + 256 x
-// 240 = 384 x 168, the block's 65536.
+constexpr int STAGES = 2;                       // slots of the ring
+// Registers a thread after setmaxnreg in the kernels with two consumer
+// warpgroups, as in flash_fwd_tc: 128 x 24 + 256 x 240 = 384 x 168, the
+// block's 65536.
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int STAGES = 2;                       // slots of the ring
+constexpr int SPLIT_BAR = 1;                    // named barrier of split_consume
 constexpr int PREP_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // S rounded up to whole streamed tiles: the row length of the workspace
 __host__ __device__ __forceinline__ int padded(int S) { return (S + TILE - 1) / TILE * TILE; }
 
+// How the two kernels share the work at head dim D (see the note at the top).
+//   D 64, 128: each kernel owns 128 rows, two consumer warpgroups of 64.
+//   D 256: dq owns 64 query rows, one consumer warpgroup (its dQ alone is
+//   128 f32 registers a thread); dkdv owns 64 kv rows and its two consumer
+//   warpgroups split D (split_consume).
 template <int D>
-struct Tiles {
-  static_assert(D == 64 || D == 128, "D is 64 or 128");
+struct Plan {
+  static_assert(D == 64 || D == 128 || D == 256, "D is 64, 128 or 256");
+  static constexpr bool SPLIT = D == 256;
   static constexpr int PANELS = D / PANEL_COLS;
-  static constexpr int OWN_BYTES = OWN * D * 2;     // one owned tile
-  static constexpr int TILE_BYTES = TILE * D * 2;   // one streamed tile
-  static constexpr int ROW_BYTES = TILE * 4;        // a streamed tile's lse2 or D
-  // two owned tiles, then per slot two streamed tiles and their rows; + 1024:
-  // the dynamic buffer is aligned up to the swizzle period
+  static constexpr int DQ_WGS = SPLIT ? 1 : 2;        // dq's consumer warpgroups
+  static constexpr int DQ_OWN = DQ_WGS * WG_ROWS;     // query rows a dq block owns
+  static constexpr int KV_OWN = SPLIT ? 64 : 128;     // kv rows a dkdv block owns
+  static constexpr int DQ_THREADS = (DQ_WGS + 1) * 128;   // + the producer warpgroup
+  static constexpr int KV_THREADS = 3 * 128;
+  static constexpr int TILE_BYTES = TILE * D * 2;     // one streamed tile
+  static constexpr int ROW_BYTES = TILE * 4;          // a streamed tile's lse2 or D
   static constexpr int RING = STAGES * 2 * TILE_BYTES;
-  static constexpr int SMEM = 2 * OWN_BYTES + RING + STAGES * 2 * ROW_BYTES + 1024;
-  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+  static constexpr int PT_BYTES = TILE * TILE * 2;    // split_consume's P^T or dS^T
+  // dq: Q and dO of the owned rows, the ring of K and V tiles; dkdv: K and
+  // V, the ring of Q and dO tiles and their rows, P^T and dS^T when split.
+  // + 1024: the dynamic buffer is aligned up to the swizzle period.
+  static constexpr int DQ_SMEM = 2 * DQ_OWN * D * 2 + RING + 1024;
+  static constexpr int KV_SMEM = 2 * KV_OWN * D * 2 + RING + STAGES * 2 * ROW_BYTES
+                                 + (SPLIT ? 2 * PT_BYTES : 0) + 1024;
+  static_assert(DQ_SMEM <= 227 * 1024 && KV_SMEM <= 227 * 1024,
+                "shared memory of one block");
 };
 
 template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
@@ -677,18 +719,17 @@ __device__ __forceinline__ void pack_a(const float (&x)[N / 2], uint32_t (&a)[N 
   }
 }
 
-// D[64 x 64] (=) A B^T over D / 16 k steps: A 64 rows at a_addr in panels
-// a_panel bytes apart, B 64 rows at b_addr in panels b_panel apart, both
+// D[64 x N] (=) A B^T over D / 16 k steps: A 64 rows at a_addr in panels
+// a_panel bytes apart, B N rows at b_addr in panels b_panel apart, both
 // K-major, 128-byte swizzled. Issued, not committed.
-template <typename T, int D>
-__device__ __forceinline__ void issue_ss(float (&d)[TILE / 2], uint32_t a_addr, int a_panel,
+template <typename T, int D, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint32_t a_addr, int a_panel,
                                          uint32_t b_addr, int b_panel) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes
-    hopper::wgmma_ss<T, TILE>(d, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
-                              sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024),
-                              kk > 0);
+    hopper::wgmma_ss<T, N>(d, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
+                           sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024), kk > 0);
   }
 }
 
@@ -704,15 +745,27 @@ __device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[
   }
 }
 
-// Stores rows row0 and row0 + 8 (those below S) of a 64 x D accumulator,
+// D[64 x N] += A B over TILE / 16 k steps: A [64 x TILE] K-major at a_addr
+// (one 128-byte swizzled panel), B [TILE rows x N] MN-major at b_addr in
+// panels TILE * 128 bytes apart. Issued, not committed.
+template <typename T, int N>
+__device__ __forceinline__ void issue_st(float (&d)[N / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    hopper::wgmma_st<T, N>(d, sw128_desc(a_addr + kk * 32, 16, 1024),
+                           sw128_desc(b_addr + kk * 16 * 128, TILE * 128, 1024));
+  }
+}
+
+// Stores rows row0 and row0 + 8 (those below S) of a 64 x N accumulator,
 // times `mul`, into a [S, D] head at column col + 8 j + (e % 2).
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], T* __restrict__ head,
+template <typename T, int N, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2], T* __restrict__ head,
                                            int row0, int col, int S, float mul) {
   T* out0 = head + static_cast<size_t>(row0) * D + col;
   T* out1 = out0 + 8 * D;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     if (row0 < S) {
       *reinterpret_cast<uint32_t*>(out0 + 8 * j) =
           pack2<T>(acc[4 * j] * mul, acc[4 * j + 1] * mul);
@@ -724,26 +777,80 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], T* __restr
   }
 }
 
-// One consumer warpgroup of flash_bwd_dkdv_tc: its 64 kv rows' dK and dV
-// over the ring's tiles, then the epilogue. Fragment layout of a wgmma
-// m64nN f32 accumulator, thread t of the warpgroup (warp w = t / 32, lane
-// l): register 4 j + e holds row 16 w + l / 4 + 8 (e / 2) and column 8 j +
-// 2 (l % 4) + (e % 2); here rows are kv rows and columns the tile's queries.
+// Masks of one tile of TILE queries from q0 against `rows` kv rows from kw0:
+//   tile_idle: every pair masked, or the rows all past S;
+//   tile_edge: some pair masked.
+__device__ __forceinline__ bool tile_idle(int q0, int kw0, int rows, const Opts& o) {
+  return kw0 >= o.S || (o.causal && q0 + TILE - 1 < kw0) ||
+         (o.has_window && q0 - (kw0 + rows - 1) >= o.window);
+}
+__device__ __forceinline__ bool tile_edge(int q0, int kw0, int rows, const Opts& o) {
+  return q0 + TILE > o.S || kw0 + rows > o.S || (o.causal && kw0 + rows - 1 > q0) ||
+         (o.has_window && q0 + TILE - 1 - kw0 >= o.window);
+}
+
+// P^T, dS^T in place of S^T, dP^T (an accumulator of N query columns from
+// q0: register 4 j + e at kv row row0 + 8 (e / 2), query q0 + 8 j + col +
+// (e % 2)); lse2 and D by column, sL and sD from q0.
+template <bool CAP, bool MASK, int N>
+__device__ __forceinline__ void grads_masked(float (&s)[N / 2], float (&dp)[N / 2], int q0, int row0,
+                                        int col, const float* sL, const float* sD,
+                                        const Opts& o) {
+  const float scale_log2 = o.scale * LOG2E;
+  const float scale_cap = o.has_cap ? o.scale / o.cap : 0.f;
+  const float cap_log2 = o.cap * LOG2E;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + col);
+    const float2 dl = *reinterpret_cast<const float2*>(sD + 8 * j + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + 8 * j + col + (e & 1);
+      const int kv = row0 + 8 * (e >> 1);
+      bool ok = true;
+      if (MASK) {
+        ok = q < o.S && kv < o.S;
+        if (o.causal) ok = ok && kv <= q;
+        if (o.has_window) ok = ok && q - kv < o.window;
+      }
+      p_and_ds<CAP>(s[4 * j + e], dp[4 * j + e], (e & 1) ? l2.y : l2.x, (e & 1) ? dl.y : dl.x,
+                    ok, scale_log2, scale_cap, cap_log2);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void grads_t(float (&s)[N / 2], float (&dp)[N / 2], int q0, int row0,
+                                        int col, const float* sL, const float* sD, bool edge,
+                                        const Opts& o) {
+  if (edge) {
+    if (o.has_cap) grads_masked<true, true, N>(s, dp, q0, row0, col, sL, sD, o);
+    else grads_masked<false, true, N>(s, dp, q0, row0, col, sL, sD, o);
+  } else if (o.has_cap) {
+    grads_masked<true, false, N>(s, dp, q0, row0, col, sL, sD, o);
+  } else {
+    grads_masked<false, false, N>(s, dp, q0, row0, col, sL, sD, o);
+  }
+}
+
+// One consumer warpgroup of flash_bwd_dkdv_tc at D 64 and 128: its 64 kv
+// rows' dK and dV over the ring's tiles, then the epilogue. Fragment layout
+// of a wgmma m64nN f32 accumulator, thread t of the warpgroup (warp w = t /
+// 32, lane l): register 4 j + e holds row 16 w + l / 4 + 8 (e / 2) and
+// column 8 j + 2 (l % 4) + (e % 2); here rows are kv rows and columns the
+// tile's queries.
 template <typename T, int D>
 __device__ __forceinline__ void dkdv_consume(
     unsigned char* sK, unsigned char* sV, unsigned char* sRing, const float* sRows,
     uint64_t* kv_full, uint64_t* full, uint64_t* empty, T* __restrict__ dk,
     T* __restrict__ dv, int bkv, int k0, int t_lo, int n_t, int n_tiles, int warp,
     const Opts& o) {
-  using C = Tiles<D>;
+  using C = Plan<D>;
   const int wg = warp / 4;
   const int lane = threadIdx.x % 32;
   const int kw0 = k0 + wg * WG_ROWS;                  // the warpgroup's kv rows
   const int row0 = kw0 + 16 * (warp % 4) + lane / 4;  // this thread's: row0, row0 + 8
   const int col = 2 * (lane % 4);                     // + 8 j + (e % 2)
-  const float scale_log2 = o.scale * LOG2E;
-  const float scale_cap = o.has_cap ? o.scale / o.cap : 0.f;
-  const float cap_log2 = o.cap * LOG2E;
 
   float acc_k[D / 2], acc_v[D / 2], s[TILE / 2], dp[TILE / 2];
   uint32_t pa[TILE / 16][4], da[TILE / 16][4];
@@ -754,46 +861,13 @@ __device__ __forceinline__ void dkdv_consume(
 
   const uint32_t k_addr = smem_addr(sK) + wg * WG_ROWS * 128;
   const uint32_t v_addr = smem_addr(sV) + wg * WG_ROWS * 128;
-  // every pair of the tile and these rows masked, or the rows all past S
-  auto idle = [&](int q0) {
-    return kw0 >= o.S || (o.causal && q0 + TILE - 1 < kw0) ||
-           (o.has_window && q0 - (kw0 + WG_ROWS - 1) >= o.window);
-  };
-  // some pair of the tile and these rows masked
-  auto edge = [&](int q0) {
-    return q0 + TILE > o.S || kw0 + WG_ROWS > o.S || (o.causal && kw0 + WG_ROWS - 1 > q0) ||
-           (o.has_window && q0 + TILE - 1 - kw0 >= o.window);
-  };
-  // P^T, dS^T in place of S^T, dP^T; lse2 and D by column (the query)
-  auto grads = [&](int q0, const float* sL, const float* sD, auto cap, auto mask) {
-    constexpr bool CAP = decltype(cap)::value;
-    constexpr bool MASK = decltype(mask)::value;
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + col);
-      const float2 dl = *reinterpret_cast<const float2*>(sD + 8 * j + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + 8 * j + col + (e & 1);
-        const int kv = row0 + 8 * (e >> 1);
-        bool ok = true;
-        if (MASK) {
-          ok = q < o.S && kv < o.S;
-          if (o.causal) ok = ok && kv <= q;
-          if (o.has_window) ok = ok && q - kv < o.window;
-        }
-        p_and_ds<CAP>(s[4 * j + e], dp[4 * j + e], (e & 1) ? l2.y : l2.x,
-                      (e & 1) ? dl.y : dl.x, ok, scale_log2, scale_cap, cap_log2);
-      }
-    }
-  };
 
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % STAGES;
     const int q0 = (t_lo + i % n_t) * TILE;
     mbar_wait(&full[st], (i / STAGES) & 1);
-    if (!idle(q0)) {
+    if (!tile_idle(q0, kw0, WG_ROWS, o)) {
       const uint32_t q_addr = smem_addr(sRing + st * 2 * C::TILE_BYTES);
       const uint32_t do_addr = q_addr + C::TILE_BYTES;
       const float* sL = sRows + st * 2 * TILE;
@@ -801,20 +875,13 @@ __device__ __forceinline__ void dkdv_consume(
       fence_regs(s);
       fence_regs(dp);
       hopper::wgmma_fence();
-      issue_ss<T, D>(s, k_addr, OWN * 128, q_addr, TILE * 128);
-      issue_ss<T, D>(dp, v_addr, OWN * 128, do_addr, TILE * 128);
+      issue_ss<T, D, TILE>(s, k_addr, C::KV_OWN * 128, q_addr, TILE * 128);
+      issue_ss<T, D, TILE>(dp, v_addr, C::KV_OWN * 128, do_addr, TILE * 128);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      if (edge(q0)) {
-        if (o.has_cap) grads(q0, sL, sL + TILE, Flag<true>{}, Flag<true>{});
-        else grads(q0, sL, sL + TILE, Flag<false>{}, Flag<true>{});
-      } else if (o.has_cap) {
-        grads(q0, sL, sL + TILE, Flag<true>{}, Flag<false>{});
-      } else {
-        grads(q0, sL, sL + TILE, Flag<false>{}, Flag<false>{});
-      }
+      grads_t<TILE>(s, dp, q0, row0, col, sL, sL + TILE, tile_edge(q0, kw0, WG_ROWS, o), o);
       pack_a<T, TILE>(s, pa);
       pack_a<T, TILE>(dp, da);
       // dV += P^T dO, dK += dS^T Q
@@ -842,30 +909,132 @@ __device__ __forceinline__ void dkdv_consume(
   }
 
   const size_t head = static_cast<size_t>(bkv) * o.S * D;
-  store_rows<T, D>(acc_k, dk + head, row0, col, o.S, o.scale);
-  store_rows<T, D>(acc_v, dv + head, row0, col, o.S, 1.f);
+  store_rows<T, D, D>(acc_k, dk + head, row0, col, o.S, o.scale);
+  store_rows<T, D, D>(acc_v, dv + head, row0, col, o.S, 1.f);
+}
+
+// One consumer warpgroup of flash_bwd_dkdv_tc at D 256, where one
+// warpgroup cannot hold dK and dV of its rows (256 + 256 f32 registers a
+// thread at 64 rows). Both warpgroups own the block's 64 kv rows and split
+// the work of each tile:
+//   * S^T = K Q^T and dP^T = V dO^T once: warpgroup w takes the tile's
+//     queries 32 w .. 32 w + 31 (wgmma_ss m64n32 over the full D);
+//   * its P^T and dS^T, rounded to 16 bits, go to shared memory (one
+//     128-byte swizzled panel each, as wgmma's K-major A reads it), and a
+//     named barrier joins the two halves;
+//   * dV[:, 128 w ..] += P^T dO[:, 128 w ..] and dK[:, 128 w ..] += dS^T
+//     Q[:, 128 w ..] (wgmma_st m64n128, A = the whole P^T or dS^T), 64 + 64
+//     accumulator registers a thread;
+//   * a second barrier frees P^T and dS^T for the next tile.
+template <typename T>
+__device__ __forceinline__ void split_consume(
+    unsigned char* sK, unsigned char* sV, unsigned char* sRing, const float* sRows,
+    unsigned char* sPt, unsigned char* sDSt, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, T* __restrict__ dk, T* __restrict__ dv, int bkv, int k0, int t_lo,
+    int n_t, int n_tiles, int warp, const Opts& o) {
+  constexpr int D = 256;
+  constexpr int HALF = D / 2;
+  constexpr int QW = TILE / 2;                        // queries a warpgroup scores
+  using C = Plan<D>;
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int r_loc = 16 * (warp % 4) + lane / 4;       // this thread's rows: r_loc, + 8
+  const int row0 = k0 + r_loc;
+  const int col = 2 * (lane % 4);                     // + 8 j + (e % 2)
+
+  float acc_k[HALF / 2], acc_v[HALF / 2], s[QW / 2], dp[QW / 2];
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < QW / 2; ++i) s[i] = dp[i] = 0.f;
+
+  const uint32_t k_addr = smem_addr(sK);
+  const uint32_t v_addr = smem_addr(sV);
+  const uint32_t pt_addr = smem_addr(sPt);
+  const uint32_t dst_addr = smem_addr(sDSt);
+  // two 16-bit values at (kv row r, query c), c even, of a swizzled panel
+  auto put = [&](unsigned char* panel, int r, int c, float lo, float hi) {
+    const int off = r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) * 2));
+    *reinterpret_cast<uint32_t*>(panel + off) = pack2<T>(lo, hi);
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    const int q0 = (t_lo + i % n_t) * TILE;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    if (!tile_idle(q0, k0, C::KV_OWN, o)) {
+      const uint32_t q_addr = smem_addr(sRing + st * 2 * C::TILE_BYTES);
+      const uint32_t do_addr = q_addr + C::TILE_BYTES;
+      const float* sL = sRows + st * 2 * TILE;
+      // S^T, dP^T of this warpgroup's queries
+      fence_regs(s);
+      fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_ss<T, D, QW>(s, k_addr, C::KV_OWN * 128, q_addr + wg * QW * 128, TILE * 128);
+      issue_ss<T, D, QW>(dp, v_addr, C::KV_OWN * 128, do_addr + wg * QW * 128, TILE * 128);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      grads_t<QW>(s, dp, q0 + wg * QW, row0, col, sL + wg * QW, sL + TILE + wg * QW,
+                  tile_edge(q0, k0, C::KV_OWN, o), o);
+#pragma unroll
+      for (int j = 0; j < QW / 8; ++j) {
+        const int c = wg * QW + 8 * j + col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          put(sPt, r_loc + 8 * h, c, s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+          put(sDSt, r_loc + 8 * h, c, dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+        }
+      }
+      hopper::fence_async_smem();
+      hopper::bar_sync(SPLIT_BAR, 256);
+      // dV[:, half] += P^T dO[:, half], dK[:, half] += dS^T Q[:, half]
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      hopper::wgmma_fence();
+      issue_st<T, HALF>(acc_v, pt_addr, do_addr + wg * 2 * TILE * 128);
+      issue_st<T, HALF>(acc_k, dst_addr, q_addr + wg * 2 * TILE * 128);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      hopper::bar_sync(SPLIT_BAR, 256);
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  const size_t head = static_cast<size_t>(bkv) * o.S * D + wg * HALF;
+  store_rows<T, HALF, D>(acc_k, dk + head, row0, col, o.S, o.scale);
+  store_rows<T, HALF, D>(acc_v, dv + head, row0, col, o.S, 1.f);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Plan<D>::KV_THREADS, 1)
 flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
                   const __grid_constant__ CUtensorMap tmap_do,
                   const __grid_constant__ CUtensorMap tmap_k,
                   const __grid_constant__ CUtensorMap tmap_v,
                   const float* __restrict__ lse2, const float* __restrict__ delta,
                   T* __restrict__ dk, T* __restrict__ dv, Opts o) {
-  using C = Tiles<D>;
+  using C = Plan<D>;
+  constexpr int OWN = C::KV_OWN;
+  constexpr int OWN_BYTES = OWN * D * 2;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_full;
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
 
   // K, V: PANELS panels of OWN rows x 128 B; the ring: per slot a Q and a
-  // dO tile of PANELS panels of TILE rows; then per slot TILE lse2 and TILE
-  // D values. Every panel starts on a 1024-byte boundary.
+  // dO tile of PANELS panels of TILE rows; at D 256 P^T and dS^T (a panel
+  // of TILE rows each); then per slot TILE lse2 and TILE D values. Every
+  // panel starts on a 1024-byte boundary.
   unsigned char* sK = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* sV = sK + C::OWN_BYTES;
-  unsigned char* sRing = sV + C::OWN_BYTES;
-  float* sRows = reinterpret_cast<float*>(sRing + C::RING);
+  unsigned char* sV = sK + OWN_BYTES;
+  unsigned char* sRing = sV + OWN_BYTES;
+  unsigned char* sPt = sRing + C::RING;
+  unsigned char* sDSt = sPt + C::PT_BYTES;
+  float* sRows = reinterpret_cast<float*>(sRing + C::RING + (C::SPLIT ? 2 * C::PT_BYTES : 0));
 
   const int S = o.S;
   const int bkv = blockIdx.x;                   // b * Hkv + kv head
@@ -889,18 +1058,18 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
     hopper::mbar_init(&kv_full, 1);
     for (int st = 0; st < STAGES; ++st) {
       hopper::mbar_init(&full[st], 1);
-      hopper::mbar_init(&empty[st], CONSUMERS * 128);
+      hopper::mbar_init(&empty[st], 2 * 128);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp >= CONSUMERS * 4) {
+  if (warp >= 2 * 4) {
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS * 128) {
-      hopper::mbar_arrive_expect_tx(&kv_full, 2 * C::OWN_BYTES);
+    if (threadIdx.x == 2 * 128) {
+      hopper::mbar_arrive_expect_tx(&kv_full, 2 * OWN_BYTES);
       for (int p = 0; p < C::PANELS; ++p) {
         hopper::tma_load_3d(sK + p * OWN * 128, &tmap_k, &kv_full, p * PANEL_COLS, k0, bkv);
         hopper::tma_load_3d(sV + p * OWN * 128, &tmap_v, &kv_full, p * PANEL_COLS, k0, bkv);
@@ -928,8 +1097,13 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
   } else {
     // ---------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
-    dkdv_consume<T, D>(sK, sV, sRing, sRows, &kv_full, full, empty, dk, dv, bkv, k0, t_lo,
-                       n_t, n_tiles, warp, o);
+    if constexpr (C::SPLIT) {
+      split_consume<T>(sK, sV, sRing, sRows, sPt, sDSt, &kv_full, full, empty, dk, dv, bkv,
+                       k0, t_lo, n_t, n_tiles, warp, o);
+    } else {
+      dkdv_consume<T, D>(sK, sV, sRing, sRows, &kv_full, full, empty, dk, dv, bkv, k0, t_lo,
+                         n_t, n_tiles, warp, o);
+    }
   }
 }
 
@@ -938,20 +1112,21 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmap_q,
 // the second sweep, then the epilogue (the accumulator layout above; rows
 // are queries and columns the tile's keys).
 //
-// dS is rounded to 16 bits before dQ += dS K, so sum_j dS_ij, 0 without a
-// softcap, is off by the rounding errors' sum, which dQ_i takes times the
-// keys' shared component (the note on D at the top): ~2e-2 of max |dQ|
-// at a shared mean 16 times the spread, 5e-2 at 32. Without a softcap the
-// epilogue removes it: dQ_i = scale sum_j dS_ij (k_j - k_i), the row's own
-// key k_i standing in for the shared part, with sum_j dS_ij summed from the
-// rounded dS that the product took.
+// dS is rounded to 16 bits before dQ += dS K, so dQ_i takes the rounding
+// errors' sum e_i = sum_j (dS~_ij - dS_ij) times the keys' shared
+// component (the note on D at the top): ~2e-2 of max |dQ| at a shared mean
+// 16 times the spread, 5e-2 at 32, with a softcap as without. The epilogue
+// takes scale e_i k_i out, the row's own key k_i standing in for the
+// shared part; e_i is summed in f32 from the rounded dS that the product
+// took and the f32 dS it was rounded from. (Without a softcap sum_j dS_ij
+// is 0, and the rounded sum alone would do; with one it is not.)
 template <typename T, int D>
 __device__ __forceinline__ void dq_consume(
     unsigned char* sQ, unsigned char* sDO, unsigned char* sRing, uint64_t* q_full,
     uint64_t* full, uint64_t* empty, const float* __restrict__ lse2,
     float* __restrict__ delta, const T* __restrict__ kh, T* __restrict__ dq, int bh,
     int q0, int kv_lo, int n_tiles, int warp, const Opts& o) {
-  using C = Tiles<D>;
+  using C = Plan<D>;
   const int wg = warp / 4;
   const int lane = threadIdx.x % 32;
   const int qw0 = q0 + wg * WG_ROWS;                  // the warpgroup's query rows
@@ -962,8 +1137,8 @@ __device__ __forceinline__ void dq_consume(
   const float cap_log2 = o.cap * LOG2E;
 
   // the rows' lse2 (rows past S: +inf, as the workspace's pad), D, summed
-  // over the first sweep, and sum_j dS_ij of the rounded dS
-  float l2[2], dl[2] = {0.f, 0.f}, ds_sum[2] = {0.f, 0.f};
+  // over the first sweep, and the rounding errors' sum of their dS
+  float l2[2], dl[2] = {0.f, 0.f}, ds_err[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -1050,8 +1225,8 @@ __device__ __forceinline__ void dq_consume(
       fence_regs(s);
       fence_regs(dp);
       hopper::wgmma_fence();
-      issue_ss<T, D>(s, q_addr, OWN * 128, k_addr, TILE * 128);
-      issue_ss<T, D>(dp, do_addr, OWN * 128, v_addr, TILE * 128);
+      issue_ss<T, D, TILE>(s, q_addr, C::DQ_OWN * 128, k_addr, TILE * 128);
+      issue_ss<T, D, TILE>(dp, do_addr, C::DQ_OWN * 128, v_addr, TILE * 128);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       fence_regs(s);
@@ -1077,14 +1252,12 @@ __device__ __forceinline__ void dq_consume(
         grads(kv0, Flag<false>{}, Flag<false>{});
       }
       pack_a<T, TILE>(dp, da);
-      if (!o.has_cap) {
 #pragma unroll
-        for (int kk = 0; kk < TILE / 16; ++kk) {
+      for (int kk = 0; kk < TILE / 16; ++kk) {
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {      // registers 8 kk + 2 h, + 1: row h % 2
-            const float2 x = unpack2<T>(da[kk][h]);
-            ds_sum[h & 1] += x.x + x.y;
-          }
+        for (int h = 0; h < 4; ++h) {        // registers 8 kk + 2 h, + 1: row h % 2
+          const float2 x = unpack2<T>(da[kk][h]);
+          ds_err[h & 1] += (x.x - dp[8 * kk + 2 * h]) + (x.y - dp[8 * kk + 2 * h + 1]);
         }
       }
       // dQ += dS K
@@ -1102,37 +1275,38 @@ __device__ __forceinline__ void dq_consume(
     mbar_arrive(&empty[st]);
   }
 
-  if (!o.has_cap) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 1);
-      ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 2);
-    }
+  for (int r = 0; r < 2; ++r) {
+    ds_err[r] += __shfl_xor_sync(0xffffffffu, ds_err[r], 1);
+    ds_err[r] += __shfl_xor_sync(0xffffffffu, ds_err[r], 2);
+  }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= o.S) continue;
-      const T* k_row = kh + static_cast<size_t>(row) * D + col;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= o.S) continue;
+    const T* k_row = kh + static_cast<size_t>(row) * D + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float2 kv = unpack2<T>(*reinterpret_cast<const uint32_t*>(k_row + 8 * j));
-        acc[4 * j + 2 * r] -= ds_sum[r] * kv.x;
-        acc[4 * j + 2 * r + 1] -= ds_sum[r] * kv.y;
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 kv = unpack2<T>(*reinterpret_cast<const uint32_t*>(k_row + 8 * j));
+      acc[4 * j + 2 * r] -= ds_err[r] * kv.x;
+      acc[4 * j + 2 * r + 1] -= ds_err[r] * kv.y;
     }
   }
-  store_rows<T, D>(acc, dq + static_cast<size_t>(bh) * o.S * D, row0, col, o.S, o.scale);
+  store_rows<T, D, D>(acc, dq + static_cast<size_t>(bh) * o.S * D, row0, col, o.S, o.scale);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Plan<D>::DQ_THREADS, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
                 const __grid_constant__ CUtensorMap tmap_do,
                 const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v,
                 const float* __restrict__ lse2, float* __restrict__ delta,
                 const T* __restrict__ k, T* __restrict__ dq, Opts o) {
-  using C = Tiles<D>;
+  using C = Plan<D>;
+  constexpr int OWN = C::DQ_OWN;
+  constexpr int OWN_BYTES = OWN * D * 2;
+  constexpr int WGS = C::DQ_WGS;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
@@ -1140,8 +1314,8 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
   // Q, dO: PANELS panels of OWN rows x 128 B; the ring: per slot a K and a
   // V tile of PANELS panels of TILE rows.
   unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* sDO = sQ + C::OWN_BYTES;
-  unsigned char* sRing = sDO + C::OWN_BYTES;
+  unsigned char* sDO = sQ + OWN_BYTES;
+  unsigned char* sRing = sDO + OWN_BYTES;
 
   const int S = o.S;
   const int bh = blockIdx.x;                             // b * Hq + h
@@ -1161,18 +1335,22 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
     hopper::mbar_init(&q_full, 1);
     for (int st = 0; st < STAGES; ++st) {
       hopper::mbar_init(&full[st], 1);
-      hopper::mbar_init(&empty[st], CONSUMERS * 128);
+      hopper::mbar_init(&empty[st], WGS * 128);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp >= CONSUMERS * 4) {
+  if (warp >= WGS * 4) {
     // ---------------------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS * 128) {
-      hopper::mbar_arrive_expect_tx(&q_full, 2 * C::OWN_BYTES);
+    // (one consumer warpgroup: 256 threads fit 255 registers each, and
+    // no redistribution is needed)
+    if constexpr (WGS == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    }
+    if (threadIdx.x == WGS * 128) {
+      hopper::mbar_arrive_expect_tx(&q_full, 2 * OWN_BYTES);
       for (int p = 0; p < C::PANELS; ++p) {
         hopper::tma_load_3d(sQ + p * OWN * 128, &tmap_q, &q_full, p * PANEL_COLS, q0, bh);
         hopper::tma_load_3d(sDO + p * OWN * 128, &tmap_do, &q_full, p * PANEL_COLS, q0, bh);
@@ -1193,7 +1371,9 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
     }
   } else {
     // ---------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    if constexpr (WGS == 2) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    }
     dq_consume<T, D>(sQ, sDO, sRing, &q_full, full, empty, lse2, delta,
                      k + static_cast<size_t>(kv_head) * S * D, dq, bh, q0, kv_lo, n_tiles,
                      warp, o);
@@ -1206,7 +1386,7 @@ template <typename T, int D>
 int launch_typed(const void* q, const void* k, const void* v, const float* lse,
                  const void* dout, void* dq, void* dk, void* dv, float* work, int B,
                  int Hkv, const Opts& o, cudaStream_t stream) {
-  using C = Tiles<D>;
+  using C = Plan<D>;
   const int S = o.S;
   const int rows = B * o.Hq * padded(S);
   float* lse2 = work;
@@ -1216,36 +1396,39 @@ int launch_typed(const void* q, const void* k, const void* v, const float* lse,
   int err = hopper::encoder(&encode);
   if (err != 0) return err;
   constexpr CUtensorMapDataType type = hopper::map_type<T>();
-  // maps with boxes of the owned rows (OWN) and of the streamed tiles (TILE)
+  // maps with boxes of the owned rows (DQ_OWN, KV_OWN) and of the streamed
+  // tiles (TILE)
   CUtensorMap q_own, do_own, k_tile, v_tile, q_tile, do_tile, k_own, v_own;
-  if ((err = hopper::make_map(encode, &q_own, q, type, B * o.Hq, S, D, OWN)) != 0 ||
-      (err = hopper::make_map(encode, &do_own, dout, type, B * o.Hq, S, D, OWN)) != 0 ||
+  if ((err = hopper::make_map(encode, &q_own, q, type, B * o.Hq, S, D, C::DQ_OWN)) != 0 ||
+      (err = hopper::make_map(encode, &do_own, dout, type, B * o.Hq, S, D, C::DQ_OWN)) != 0 ||
       (err = hopper::make_map(encode, &k_tile, k, type, B * Hkv, S, D, TILE)) != 0 ||
       (err = hopper::make_map(encode, &v_tile, v, type, B * Hkv, S, D, TILE)) != 0 ||
       (err = hopper::make_map(encode, &q_tile, q, type, B * o.Hq, S, D, TILE)) != 0 ||
       (err = hopper::make_map(encode, &do_tile, dout, type, B * o.Hq, S, D, TILE)) != 0 ||
-      (err = hopper::make_map(encode, &k_own, k, type, B * Hkv, S, D, OWN)) != 0 ||
-      (err = hopper::make_map(encode, &v_own, v, type, B * Hkv, S, D, OWN)) != 0) {
+      (err = hopper::make_map(encode, &k_own, k, type, B * Hkv, S, D, C::KV_OWN)) != 0 ||
+      (err = hopper::make_map(encode, &v_own, v, type, B * Hkv, S, D, C::KV_OWN)) != 0) {
     return err;
   }
   cudaError_t cerr = cudaFuncSetAttribute(flash_bwd_dq_tc<T, D>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          C::DQ_SMEM);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   cerr = cudaFuncSetAttribute(flash_bwd_dkdv_tc<T, D>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::KV_SMEM);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
 
   flash_bwd_prep<<<(rows + PREP_THREADS - 1) / PREP_THREADS, PREP_THREADS, 0, stream>>>(
       lse, lse2, S, rows);
   if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
 
-  const int blocks = (S + OWN - 1) / OWN;
-  flash_bwd_dq_tc<T, D><<<dim3(B * o.Hq, blocks), THREADS, C::SMEM, stream>>>(
+  flash_bwd_dq_tc<T, D><<<dim3(B * o.Hq, (S + C::DQ_OWN - 1) / C::DQ_OWN), C::DQ_THREADS,
+                          C::DQ_SMEM, stream>>>(
       q_own, do_own, k_tile, v_tile, lse2, delta, static_cast<const T*>(k),
       static_cast<T*>(dq), o);
   if ((cerr = cudaGetLastError()) != cudaSuccess) return static_cast<int>(cerr);
 
-  flash_bwd_dkdv_tc<T, D><<<dim3(B * Hkv, blocks), THREADS, C::SMEM, stream>>>(
+  flash_bwd_dkdv_tc<T, D><<<dim3(B * Hkv, (S + C::KV_OWN - 1) / C::KV_OWN), C::KV_THREADS,
+                            C::KV_SMEM, stream>>>(
       q_tile, do_tile, k_own, v_own, lse2, delta, static_cast<T*>(dk), static_cast<T*>(dv), o);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1260,6 +1443,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, const float* ls
     case 128:
       return tcb::launch_typed<T, 128>(q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o,
                                        stream);
+    case 256:
+      return tcb::launch_typed<T, 256>(q, k, v, lse, dout, dq, dk, dv, work, B, Hkv, o,
+                                       stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1272,7 +1458,7 @@ extern "C" {
 // 1 if flash_attention_bwd_launch runs the tensor-core kernels for this
 // dtype code and head dim, 0 if the CUDA-core ones.
 int flash_attention_bwd_uses_tensor_cores(int dtype, int D) {
-  return (dtype == BF16 || dtype == F16) && (D == 64 || D == 128);
+  return (dtype == BF16 || dtype == F16) && (D == 64 || D == 128 || D == 256);
 }
 
 // Launches the three kernels on `stream` (no synchronisation) and returns 0,

@@ -12,8 +12,8 @@ and of the gradient that JAX's autodiff takes of the reference attention:
   :func:`flash_attention_torch`. When grad mode is on and q, k or v
   requires grad, it goes through :class:`_FlashAttention`, whose backward
   is the hand-written kernels of ``csrc/flash_attention_bwd.cu`` on the
-  card (on tensor cores for bf16/f16 at D 64 and 128, on CUDA cores for f32
-  and the other head dims; the source's note says why) and
+  card (on tensor cores for bf16/f16 at D 64, 128 and 256, on CUDA cores
+  for f32 and the other head dims; the source's note says why) and
   :func:`flash_attention_backward_torch` on the CPU.
   ``flash_attention.launches`` counts every forward kernel launch,
   ``flash_attention.tensor_core_launches`` those of the tensor-core kernel,
@@ -270,8 +270,8 @@ def flash_attention_backward(q, k, v, lse, do, *, sm_scale: float,
     """dq, dk, dv of :func:`flash_attention` from its inputs, the
     log-sum-exp ``lse`` of :func:`flash_attention_lse` and the output's
     gradient ``do``. CUDA tensors launch the backward kernels (on tensor
-    cores for bf16/f16 at D 64 and 128, else on CUDA cores); CPU tensors run
-    :func:`flash_attention_backward_torch` with the blocks."""
+    cores for bf16/f16 at D 64, 128 and 256, else on CUDA cores); CPU
+    tensors run :func:`flash_attention_backward_torch` with the blocks."""
     if q.device.type == "cpu":
         return flash_attention_backward_torch(
             q, k, v, lse, do, sm_scale=sm_scale, causal=causal, window=window,

@@ -496,19 +496,32 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def _tensor_core_bwd(dtype, d) -> bool:
     """Whether the backward takes the tensor-core kernels (else the CUDA-core ones)."""
-    return dtype != torch.float32 and d in (64, 128)
+    return dtype != torch.float32 and d in (64, 128, 256)
 
 
 # f32 within 2e-5 and bf16/f16 within 2e-2 of each gradient's max |g|
 @pytest.mark.parametrize("case", [
-    # the CUDA-core kernels: f32 at every D, bf16/f16 at D 96, 192, 256
+    # the CUDA-core kernels: f32 at every D, bf16/f16 at D 96 and 192
     ((2, 4, 2, 256, 64), torch.float32, {}),
     ((1, 8, 1, 256, 96), torch.float32, {"window": 64, "softcap": 20.0}),
     ((1, 2, 2, 128, 64), torch.float32, {"causal": False}),
     ((2, 8, 4, 512, 256), torch.float32, {"window": 128, "softcap": 50.0}),
     ((1, 4, 2, 256, 96), torch.bfloat16, {}),
     ((1, 4, 2, 256, 192), torch.float16, {"window": 100}),
+    # the tensor-core kernels at D 256 (dK and dV split over D): causal,
+    # window 64, softcap 50 (gemma2's), GQA groups 1, 2 and 4, S below one
+    # tile and ragged, non-causal, all rows masked
     ((1, 4, 2, 256, 256), torch.bfloat16, {}),
+    ((1, 4, 2, 256, 256), torch.float16, {}),
+    ((1, 8, 4, 384, 256), torch.bfloat16, {"window": 64}),
+    ((1, 4, 2, 256, 256), torch.bfloat16, {"softcap": 50.0}),
+    ((2, 8, 4, 512, 256), torch.bfloat16, {"window": 128, "softcap": 50.0}),
+    ((1, 4, 4, 256, 256), torch.float16, {"window": 64, "softcap": 50.0}),
+    ((1, 8, 2, 320, 256), torch.bfloat16, {}),
+    ((2, 4, 2, 48, 256), torch.bfloat16, {"window": 16}),
+    ((1, 4, 2, 200, 256), torch.float16, {"softcap": 50.0}),
+    ((1, 2, 2, 256, 256), torch.bfloat16, {"causal": False}),
+    ((1, 2, 2, 256, 256), torch.bfloat16, {"window": 0}),
     # the tensor-core kernels in bf16 and f16 at D 64 and 128: GQA groups 1,
     # 2 and 4, window, softcap, non-causal, S below one tile and ragged,
     # all rows masked
@@ -588,27 +601,36 @@ def test_tensor_core_kernels_run_first_in_a_fresh_thread(cuda, backward):
     assert all(torch.equal(a, b) for a, b in zip(out["got"], run()))
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_tensor_core_backward_is_deterministic(cuda, dtype):
+def test_tensor_core_backward_is_deterministic(cuda, dtype, d):
     """No atomics: two launches on the same inputs give the same bits."""
-    q, k, v = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=3)
-    do = _qkv(2, 8, 2, 640, 128, dtype, cuda, seed=4)[0]
-    _, lse = flash_attention_lse(q, k, v, sm_scale=128 ** -0.5, window=300)
-    first = flash_attention_backward(q, k, v, lse, do, sm_scale=128 ** -0.5, window=300)
-    second = flash_attention_backward(q, k, v, lse, do, sm_scale=128 ** -0.5, window=300)
+    q, k, v = _qkv(2, 8, 2, 640, d, dtype, cuda, seed=3)
+    do = _qkv(2, 8, 2, 640, d, dtype, cuda, seed=4)[0]
+    kw = dict(sm_scale=d ** -0.5, window=300, softcap=50.0 if d == 256 else None)
+    _, lse = flash_attention_lse(q, k, v, **kw)
+    tc = flash_attention.tensor_core_backward_launches
+    first = flash_attention_backward(q, k, v, lse, do, **kw)
+    second = flash_attention_backward(q, k, v, lse, do, **kw)
+    assert flash_attention.tensor_core_backward_launches - tc == 2
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("case", [(64, torch.bfloat16), (128, torch.bfloat16),
-                                  (64, torch.float16), (96, torch.bfloat16)],
-                         ids=["bf16-D64", "bf16-D128", "f16-D64", "bf16-D96-cuda-cores"])
+@pytest.mark.parametrize("case", [(64, torch.bfloat16, None), (128, torch.bfloat16, None),
+                                  (64, torch.float16, None), (96, torch.bfloat16, None),
+                                  (256, torch.bfloat16, None), (128, torch.bfloat16, 50.0),
+                                  (256, torch.bfloat16, 50.0), (256, torch.float16, 50.0)],
+                         ids=["bf16-D64", "bf16-D128", "f16-D64", "bf16-D96-cuda-cores",
+                              "bf16-D256", "bf16-D128-softcap", "bf16-D256-softcap",
+                              "f16-D256-softcap"])
 def test_flash_backward_holds_when_the_keys_share_a_mean(cuda, case):
     """Queries and keys that share a mean 32 times their spread (a deep
     decoder layer's are ~13): dq's error in the shared direction, which the
     exact dq lacks, stays out (D summed from the recomputed P dP, and on
-    tensor cores the rounded dS's row sums taken out), so every gradient is
-    within 1e-2 of its max |g| of the plain version."""
-    d, dtype = case
+    tensor cores the rounding errors' row sums of dS taken out, with a
+    softcap as without), so every gradient is within 1e-2 of its max |g|
+    of the plain version."""
+    d, dtype, cap = case
     rng = np.random.default_rng(7)
 
     def shared(h):
@@ -618,12 +640,45 @@ def test_flash_backward_holds_when_the_keys_share_a_mean(cuda, case):
     q, k = shared(4), shared(2)
     v, do = (torch.as_tensor(rng.standard_normal((1, h, 384, d)), device=cuda).to(dtype)
              for h in (2, 4))
-    opts = dict(sm_scale=d ** -0.5)
+    opts = dict(sm_scale=d ** -0.5, softcap=cap)
     _, lse = flash_attention_lse(q, k, v, **opts)
     got = flash_attention_backward(q, k, v, lse, do, **opts)
     want = flash_attention_backward_torch(q, k, v, lse, do, **opts)
     for g, w in zip(got, want):
         assert _rel_err(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("ratio", [16.0, 32.0])
+@pytest.mark.parametrize("layer", ["gemma2-27b", "gemma2-9b"])
+def test_softcapped_dq_holds_at_gemma2_layer_shapes(cuda, layer, ratio):
+    """A gemma2 layer's attention (softcap 50, window 4096 on a sequence
+    longer than the window; gemma2-27b: D 128, 32 q / 16 kv heads, scale
+    144^-0.5; gemma2-9b: D 256, 16 / 8, scale 256^-0.5) on queries and keys
+    that share a mean ``ratio`` times their spread: the tensor-core dq
+    within 1e-2 of its max |dq| of the plain version in f32. Before the
+    epilogue took out dS's rounding errors under a softcap too, this dq kept
+    their sum times the keys' mean."""
+    cfg = get_config(layer)
+    hq, hkv, d, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 4352
+    rng = np.random.default_rng(11)
+
+    def shared(h):
+        x = 0.25 * (ratio * rng.standard_normal((1, h, 1, d)) + rng.standard_normal((1, h, s, d)))
+        return torch.as_tensor(x, device=cuda).to(torch.bfloat16)
+
+    q, k = shared(hq), shared(hkv)
+    v, do = (torch.as_tensor(rng.standard_normal((1, h, s, d)), device=cuda).to(torch.bfloat16)
+             for h in (hkv, hq))
+    opts = dict(sm_scale=cfg.attn_scale, window=cfg.sliding_window, softcap=cfg.attn_softcap)
+    assert (opts["softcap"], opts["window"]) == (50.0, 4096) and s > opts["window"]
+    _, lse = flash_attention_lse(q, k, v, **opts)
+    tc = flash_attention.tensor_core_backward_launches
+    dq = flash_attention_backward(q, k, v, lse, do, **opts)[0]
+    assert flash_attention.tensor_core_backward_launches - tc == 1
+    f32 = [t.float() for t in (q, k, v, do)]
+    _, lse32 = flash_attention_torch(*f32[:3], return_lse=True, **opts)
+    want = flash_attention_backward_torch(*f32[:3], lse32, f32[3], **opts)[0]
+    assert _rel_err(dq, want) <= 1e-2
 
 
 def test_flash_output_keeps_its_gradient_on_the_card(cuda):

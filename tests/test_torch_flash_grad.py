@@ -176,12 +176,12 @@ def test_function_saves_the_forward_lse_and_calls_both_halves(monkeypatch):
                      ("flash_attention_backward", 0.1, 64, 20.0)]
 
 
-def _shared_mean_inputs(ratio: float):
+def _shared_mean_inputs(ratio: float, d: int = 64):
     """bf16 q, k, v, d out whose queries and keys share a mean ``ratio``
     times their spread per head, as a deep decoder layer's do, with a
     softmax that is neither flat nor one-hot."""
     rng = np.random.default_rng(12)
-    b, hq, hkv, s, d = 1, 4, 2, 256, 64
+    b, hq, hkv, s = 1, 4, 2, 256
 
     def shared(h):
         return 0.25 * (ratio * rng.standard_normal((b, h, 1, d))
@@ -194,46 +194,64 @@ def _shared_mean_inputs(ratio: float):
 
 
 def _dense_dq(q, k, v, do, delta, dtype=None):
-    """dq of causal attention with each row's D given (and, with ``dtype``,
-    dS rounded to it before dq = dS K), densely in f32."""
+    """dq of causal attention (scale D^-0.5) with each row's D given (and,
+    with ``dtype``, dS rounded to it before dq = dS K), densely in f32."""
     group = q.shape[1] // k.shape[1]
+    scale = q.shape[-1] ** -0.5
     qf, dof = q.float(), do.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    c = qf @ kf.transpose(-1, -2) * 0.125
+    c = qf @ kf.transpose(-1, -2) * scale
     ok = torch.ones(c.shape[-2:], dtype=torch.bool).tril()
     p = torch.softmax(torch.where(ok, c, -torch.inf), dim=-1)
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
     if dtype is not None:
         ds = ds.to(dtype).float()
-    return ds @ kf * 0.125
+    return ds @ kf * scale
 
 
-@pytest.mark.parametrize("ratio", [12.0, 32.0])
-def test_gradient_holds_when_the_keys_share_a_mean(ratio):
-    """Without a softcap sum_j dS_ij = 0, so a component that every key
-    shares leaves the exact dq, but any error in that sum reaches dq times
-    it. At a shared mean 12 and 32 times the spread (whisper-small's last
-    decoder layer: ~13): D taken as dO . o from the 16-bit output, as
-    FlashAttention-2 does, and dS rounded to 16 bits without the
-    tensor-core epilogue's correction, each leave the bf16 gate (2e-2 of
-    max |g|) of JAX's autodiff at 32; the plain backward (D from P dP), the
-    Function and the tensor-core algorithm stay well inside at both."""
-    (jq, jk, jv, jdo), (q, k, v, do) = _shared_mean_inputs(ratio)
+# (shared mean over spread, softcap, D): whisper-small's D 64 cases, then
+# gemma2's softcap 50 and head dims 128 (gemma2-27b) and 256 (gemma2-9b)
+SHARED_MEAN_CASES = (
+    [pytest.param(r, None, 64, id=f"{r}") for r in (12.0, 32.0)]
+    + [pytest.param(r, cap, d, id=f"{r}-{'softcap50' if cap else 'nocap'}-D{d}")
+       for r in (16.0, 32.0) for cap in (None, 50.0) for d in (128, 256)]
+)
+
+
+@pytest.mark.parametrize("ratio,cap,d", SHARED_MEAN_CASES)
+def test_gradient_holds_when_the_keys_share_a_mean(ratio, cap, d):
+    """A component that every key shares reaches dq times any error in
+    sum_j dS_ij; without a softcap that sum is 0, so the exact dq lacks the
+    component. At a shared mean 12, 16 and 32 times the spread
+    (whisper-small's last decoder layer: ~13): without a softcap, D taken
+    as dO . o from the 16-bit output, as FlashAttention-2 does, and dS
+    rounded to 16 bits with no epilogue correction each leave the bf16
+    gate (2e-2 of max |g|) of JAX's autodiff at 32; with softcap 50 the
+    tensor-core dq as it was before its repair (the rounded dS's row sums
+    taken out only without a softcap, so nothing with one) leaves it at 32.
+    The plain backward (D from P dP), the Function and the repaired
+    tensor-core algorithm (each row's sum of dS's rounding errors times k_i
+    taken out, with a softcap as without) stay within 1e-2 in every case."""
+    (jq, jk, jv, jdo), (q, k, v, do) = _shared_mean_inputs(ratio, d)
+    kw = dict(sm_scale=d ** -0.5, softcap=cap)
     want = [torch.from_numpy(np.asarray(w, np.float32))
-            for w in jax_grads(jq, jk, jv, jdo, causal=True, window=None, softcap=None)[1:]]
+            for w in jax_grads(jq, jk, jv, jdo, causal=True, window=None, softcap=cap)[1:]]
     err = lambda g, w: float((g.float() - w).abs().max() / w.abs().max())  # noqa: E731
-    out, lse = flash_attention_lse(q, k, v, sm_scale=0.125)
-    d_rounded = (do.float() * out.float()).sum(-1, keepdim=True)
-    d_exact = (do.float() * flash_attention_torch(q.float(), k.float(), v.float(), sm_scale=0.125)
-               ).sum(-1, keepdim=True)
-    if ratio > 16:
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    if ratio > 16 and cap is None:
+        d_rounded = (do.float() * out.float()).sum(-1, keepdim=True)
+        d_exact = (do.float() * flash_attention_torch(q.float(), k.float(), v.float(), **kw)
+                   ).sum(-1, keepdim=True)
         assert err(_dense_dq(q, k, v, do, d_rounded), want[0]) > 2e-2
         assert err(_dense_dq(q, k, v, do, d_exact, torch.bfloat16), want[0]) > 2e-2
+    if ratio > 16 and cap is not None:
+        before = _rounded_grads(q, k, v, do, dtype=torch.bfloat16, softcap=cap, repaired=False)
+        assert err(before[0], want[0]) > 2e-2
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    by_function = torch.autograd.grad(flash_attention(*leaves, sm_scale=0.125), leaves, do)
-    plain = flash_attention_backward_torch(q, k, v, lse, do, sm_scale=0.125)
-    tensor_core = _rounded_grads(q, k, v, do, dtype=torch.bfloat16)
+    by_function = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, do)
+    plain = flash_attention_backward_torch(q, k, v, lse, do, **kw)
+    tensor_core = _rounded_grads(q, k, v, do, dtype=torch.bfloat16, softcap=cap)
     for grads in (by_function, plain, tensor_core):
         for g, w in zip(grads, want):
             assert err(g, w) <= 1e-2
@@ -251,12 +269,16 @@ def test_lse_is_the_row_log_sum_exp():
     torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
 
 
-def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None):
+def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None,
+                   repaired=True):
     """dq, dk, dv (f32) as the tensor-core backward kernels compute them: f32
     scores, P = exp(c - lse) from the forward's f32 lse, D = rowsum(P dP),
     and P and dS rounded to ``dtype`` before the products that take them
-    (dV = P^T dO, dK = dS^T Q, dQ = dS K), then, without a softcap, dq_i
-    less the rounded dS's row sum times k_i; every sum in f32."""
+    (dV = P^T dO, dK = dS^T Q, dQ = dS K; at D 256 P^T and dS^T pass
+    through shared memory in ``dtype``, the same rounding), then dq_i less
+    the row's sum of dS's rounding errors times k_i; every sum in f32.
+    ``repaired=False`` is the epilogue as it was before: the rounded dS's
+    row sum times k_i taken out without a softcap, nothing with one."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     scale = d ** -0.5
@@ -280,7 +302,9 @@ def _rounded_grads(q, k, v, do, *, dtype, causal=True, window=None, softcap=None
         ds = ds * (1.0 - (c / softcap) ** 2)
     p16, ds16 = p.to(dtype).float(), ds.to(dtype).float()
     dq = ds16 @ kf
-    if softcap is None:
+    if repaired:
+        dq = dq - (ds16 - ds).sum(-1, keepdim=True) * kf
+    elif softcap is None:
         dq = dq - ds16.sum(-1, keepdim=True) * kf
 
     def group_sum(x):
@@ -300,14 +324,21 @@ def _jax_value_and_grads(q, k, v, do, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("opts", [{}, {"window": 64, "softcap": 30.0}], ids=["causal", "window-softcap"])
+@pytest.mark.parametrize("opts", [{}, {"window": 64, "softcap": 30.0}, {"d": 256},
+                                  {"d": 256, "window": 64, "softcap": 50.0}],
+                         ids=["causal", "window-softcap", "D256", "D256-gemma2"])
 def test_tensor_core_backward_rounding_stays_inside_the_gate(dtype, opts):
     """The tensor-core backward rounds P and dS to 16 bits before their
-    products, where the plain version keeps f32. At a reduced training shape
-    (S 256, D 128, GQA 2, causal) that rounding keeps each gradient within
-    the 16-bit gate, 2e-2 of its max |g|, of JAX's autodiff."""
+    products, where the plain version keeps f32 (at D 256 P^T and dS^T go
+    through shared memory in 16 bits). At a reduced training shape (S 256,
+    D 128, GQA 2, causal) and at D 256 with gemma2's softcap 50 (and a
+    window of 64, which bites at S 256 as gemma2's 4096 does in training)
+    that rounding keeps each gradient within the 16-bit gate, 2e-2 of its
+    max |g|, of JAX's autodiff."""
+    opts = dict(opts)
+    d = opts.pop("d", 128)
     jdtype = getattr(jnp, dtype)
-    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(1, 4, 2, 256, 128, jdtype)
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(1, 4, 2, 256, d, jdtype)
     assert q.dtype == getattr(torch, dtype)
     _, want = _jax_value_and_grads(jq, jk, jv, jdo, causal=True, **opts)
     got = _rounded_grads(q, k, v, do, dtype=getattr(torch, dtype), **opts)
