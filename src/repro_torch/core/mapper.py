@@ -729,6 +729,11 @@ def _map_dfg_impl(
                              mapping.placement, routes=mapping.routes_spec())
         return MapResult(mapping, stats, reason=reason)
 
+    # how the last traced space probe's engine call ended (SpaceStats.outcome:
+    # the engine's result, so a placement the register check rejects reads
+    # found=False with outcome "found")
+    probe_outcome = [""]
+
     def try_space(
         sol: TimeSolution, w: _Window, rnd: int,
         node_budget: int, restarts: int, salt: int = 0,
@@ -741,7 +746,8 @@ def _map_dfg_impl(
             mapping = _try_space(sol, w, rnd, node_budget, restarts, salt)
             sp.set(found=mapping is not None,
                    nodes=stats.space_nodes_visited - n0,
-                   restarts=stats.space_restarts - r0)
+                   restarts=stats.space_restarts - r0,
+                   outcome=probe_outcome[0])
             return mapping
 
     def _try_space(
@@ -799,6 +805,9 @@ def _map_dfg_impl(
         stats.space_phase_s += sstats.search_time_s
         stats.space_nodes_visited += sstats.nodes_visited
         stats.space_restarts += sstats.restarts
+        if obs.enabled():
+            probe_outcome[0] = sstats.outcome(
+                space is not None, should_stop is not None and should_stop())
         if space is None:
             stats.mono_failures += 1
             return None

@@ -320,6 +320,7 @@ class AnnealSpaceBackend:
         for r in range(n_restarts):
             remaining = wall - (_time.perf_counter() - start)
             if remaining <= 0:
+                stats.deadline_stops += 1
                 break
             if should_stop is not None and should_stop():
                 break
@@ -468,6 +469,7 @@ class AnnealSpaceBackend:
                         aborted = True
                         break
                     if deadline is not None and _time.perf_counter() > deadline:
+                        stats.deadline_stops += 1
                         break
                     if traced and not step & 0xFFF:
                         obs.event(
@@ -581,6 +583,7 @@ class AnnealSpaceBackend:
                         return sol
                     route_attempts += 1
                     if route_attempts > _MAX_ROUTE_ATTEMPTS:
+                        stats.budget_stops += 1   # out of routing attempts
                         break
                     # deblock: kick a few nodes loose and keep annealing warm
                     for _ in range(max(2, n // 10)):
@@ -600,6 +603,8 @@ class AnnealSpaceBackend:
                         if o:
                             bad.add((u, v))
                     temp = max(temp, t0 / 4)
+            else:
+                stats.budget_stops += 1   # the restart's moves ran out
             emit_restart(found=False)
             if aborted:
                 break

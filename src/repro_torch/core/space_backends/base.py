@@ -61,6 +61,26 @@ class SpaceStats:
     backtracks: int = 0
     restarts: int = 0
     route_failures: int = 0        # complete placements whose movs didn't fit
+    deadline_stops: int = 0        # dives (or restarts) cut by the wall clock
+    budget_stops: int = 0          # dives stopped by their node/move budget
+
+    def outcome(self, found: bool, cancelled: bool = False) -> str:
+        """How a probe that these stats count ended, by precedence:
+        ``found``, ``cancelled`` (the caller's ``should_stop``), ``timeout``
+        (a dive hit its deadline), ``node_budget`` (a dive hit its budget),
+        else ``exhausted`` (every dive ran its tree out). The anneal engine
+        reads ``exhausted`` only where it refuses a partition outright (a
+        node with no capable free slot); each restart it runs ends at its
+        deadline, its move budget or its routing attempts."""
+        if found:
+            return "found"
+        if cancelled:
+            return "cancelled"
+        if self.deadline_stops:
+            return "timeout"
+        if self.budget_stops:
+            return "node_budget"
+        return "exhausted"
 
 
 @dataclass(frozen=True)

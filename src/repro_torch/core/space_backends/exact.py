@@ -90,6 +90,7 @@ def find_monomorphism(
     for r in range(n_restarts):
         remaining = budget - (_time.perf_counter() - start)
         if remaining <= 0:
+            stats.deadline_stops += 1
             break
         stats.restarts += 1
         frac = weights[r] / total_w
@@ -300,6 +301,7 @@ def _search_once(
         check_tick += 1
         if deadline is not None and not check_tick & 0xFF:
             if _time.perf_counter() > deadline:
+                stats.deadline_stops += 1
                 return -1
         sel = select_var()
         if sel is None:
@@ -311,6 +313,7 @@ def _search_once(
             if budget_left >= 0:
                 budget_left -= 1
                 if budget_left < 0:
+                    stats.budget_stops += 1
                     return -1
             undo = place(v, p)
             # arc check: every unplaced neighbour must retain a candidate

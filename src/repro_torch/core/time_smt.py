@@ -300,10 +300,12 @@ class TimeSolver:
                 if t_abs is None:
                     span.set(found=False,
                              exhausted=self._engine.exhausted,
+                             outcome=("exhausted" if self._engine.exhausted
+                                      else "timeout"),
                              steps=getattr(self._engine, "steps_total", 0) - steps0)
                     return None
                 self.stats.num_solutions_enumerated += 1
-                span.set(found=True,
+                span.set(found=True, outcome="found",
                          steps=getattr(self._engine, "steps_total", 0) - steps0)
                 return TimeSolution(self.ii, list(t_abs))
             finally:

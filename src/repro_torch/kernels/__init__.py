@@ -13,4 +13,21 @@ flash_attention.py  the flash-attention kernels' wrappers (forward, with the
 csrc/               the hand-written CUDA sources, built at first use by
                     _build.py
 ref.py              the oracles the kernels are held against
+
+Importing the package installs ``obs``'s profiler hook, so that the
+executor's spans (``exec.*``, ``cgra_sim.*``) and every other ``obs`` span
+show in a ``torch.profiler`` trace as annotations.
 """
+
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function as _record_function
+
+from .. import obs as _obs
+
+
+def _profiling() -> bool:
+    return _autograd_profiler._is_profiler_enabled
+
+
+# obs spans become profiler annotations while torch.profiler records
+_obs.install_profiler_hook(_profiling, _record_function)

@@ -28,6 +28,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.simulate import OPCODES
 
 NOPS = len(OPCODES)
@@ -148,29 +149,34 @@ def cgra_sim(tables: SimTables, inputs: torch.Tensor) -> torch.Tensor:
     inputs' device.
 
     A CUDA tensor launches the CUDA kernel on the current stream (no
-    synchronisation); a CPU tensor runs :func:`cgra_sim_torch`.
+    synchronisation); a CPU tensor runs :func:`cgra_sim_torch`'s loop. The
+    ``obs`` spans ``cgra_sim.fill`` (the trace's zeros) and
+    ``cgra_sim.launch`` (the kernel's launch, or the loop) mark the two
+    steps.
     """
-    if inputs.device.type == "cpu":
-        return cgra_sim_torch(tables, inputs)
-    if inputs.device.type != "cuda":
+    if inputs.device.type not in ("cuda", "cpu"):
         raise ValueError(f"cgra_sim runs on cuda or cpu, not {inputs.device}")
     _check(tables, inputs)
-    lib = _library()
     _, num_iters, batch = inputs.shape
     num_cycles = tables.num_cycles(num_iters)
-    trace = torch.zeros((num_cycles, tables.num_pes, batch),
-                        dtype=torch.float32, device=inputs.device)
-    with torch.cuda.device(inputs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cgra_sim_launch(
-            tables.step_ptr.data_ptr(), tables.pe.data_ptr(),
-            tables.op.data_ptr(), tables.t0.data_ptr(),
-            tables.src_pe.data_ptr(), tables.src_delta.data_ptr(),
-            tables.imm.data_ptr(), tables.in_slot.data_ptr(),
-            inputs.data_ptr(), trace.data_ptr(),
-            tables.ii, tables.num_pes, num_cycles, num_iters, batch,
-            BLOCK_THREADS, stream,
-        )
+    with obs.span("cgra_sim.fill"):
+        trace = torch.zeros((num_cycles, tables.num_pes, batch),
+                            dtype=torch.float32, device=inputs.device)
+    with obs.span("cgra_sim.launch"):
+        if inputs.device.type == "cpu":
+            return _simulate_torch(tables, inputs, trace)
+        lib = _library()
+        with torch.cuda.device(inputs.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.cgra_sim_launch(
+                tables.step_ptr.data_ptr(), tables.pe.data_ptr(),
+                tables.op.data_ptr(), tables.t0.data_ptr(),
+                tables.src_pe.data_ptr(), tables.src_delta.data_ptr(),
+                tables.imm.data_ptr(), tables.in_slot.data_ptr(),
+                inputs.data_ptr(), trace.data_ptr(),
+                tables.ii, tables.num_pes, num_cycles, num_iters, batch,
+                BLOCK_THREADS, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"cgra_sim launch failed: {lib.cgra_sim_error_string(err).decode()}"
@@ -245,11 +251,19 @@ def cgra_sim_torch(tables: SimTables, inputs: torch.Tensor) -> torch.Tensor:
     scatters the results into the trace.
     """
     _check(tables, inputs)
-    dev = inputs.device
     _, num_iters, batch = inputs.shape
-    num_cycles = tables.num_cycles(num_iters)
-    trace = torch.zeros((num_cycles, tables.num_pes, batch),
-                        dtype=torch.float32, device=dev)
+    trace = torch.zeros((tables.num_cycles(num_iters), tables.num_pes, batch),
+                        dtype=torch.float32, device=inputs.device)
+    return _simulate_torch(tables, inputs, trace)
+
+
+def _simulate_torch(tables: SimTables, inputs: torch.Tensor,
+                    trace: torch.Tensor) -> torch.Tensor:
+    """:func:`cgra_sim_torch`'s loop into ``trace``, zeros of the trace's
+    shape on the inputs' device."""
+    dev = inputs.device
+    num_cycles, _, batch = trace.shape
+    num_iters = inputs.shape[1]
     ii = tables.ii
     last = (num_iters - 1) * ii
     ptr = tables.step_ptr.tolist()

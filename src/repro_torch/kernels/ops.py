@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.mapper import Mapping
 from ..core.simulate import OPCODES, _operands
 from .cgra_sim import NOPS, SimTables, cgra_sim
@@ -171,27 +172,37 @@ def cgra_run(
 
     ``inputs`` maps every input node to its streams, numpy arrays or
     tensors of shape [num_iters, B].
+
+    ``obs`` spans mark its steps, with no work or synchronisation of their
+    own: ``exec.run`` the whole call; inside it ``exec.tables`` (the host
+    tables and their copies to the device), ``exec.inputs`` (the streams'
+    copies and their stack), ``cgra_sim``'s ``cgra_sim.fill`` and
+    ``cgra_sim.launch``, and ``exec.gather`` (the stores' indexing).
     """
-    dev = resolve_device(device)
-    nodes = program.input_nodes()
-    if sorted(inputs) != nodes:
-        raise ValueError(f"inputs must cover input nodes {nodes}, got {sorted(inputs)}")
-    tables = program.sim_tables().to(dev)
-    streams = [torch.as_tensor(inputs[v], dtype=torch.float32, device=dev)
-               for v in nodes]
-    if any(s.shape != streams[0].shape or s.dim() != 2 for s in streams):
-        raise ValueError("every input stream must be [num_iters, B], all alike")
-    if streams and streams[0].shape[0] != num_iters:
-        raise ValueError(f"input streams hold {streams[0].shape[0]} iterations, "
-                         f"not {num_iters}")
-    batch = streams[0].shape[1] if streams else 1
-    stacked = (torch.stack(streams) if streams
-               else torch.zeros((0, num_iters, batch), device=dev))
-    trace = cgra_sim(tables, stacked.contiguous())
-    m = program.mapping
-    outs: dict[int, torch.Tensor] = {}
-    for v in m.dfg.nodes:
-        if m.dfg.ops[v] == "store":
-            cyc = m.t_abs[v] + torch.arange(num_iters, device=dev) * m.ii
-            outs[v] = trace[cyc, m.placement[v], :]
+    with obs.span("exec.run"):
+        dev = resolve_device(device)
+        nodes = program.input_nodes()
+        if sorted(inputs) != nodes:
+            raise ValueError(f"inputs must cover input nodes {nodes}, got {sorted(inputs)}")
+        with obs.span("exec.tables"):
+            tables = program.sim_tables().to(dev)
+        with obs.span("exec.inputs"):
+            streams = [torch.as_tensor(inputs[v], dtype=torch.float32, device=dev)
+                       for v in nodes]
+            if any(s.shape != streams[0].shape or s.dim() != 2 for s in streams):
+                raise ValueError("every input stream must be [num_iters, B], all alike")
+            if streams and streams[0].shape[0] != num_iters:
+                raise ValueError(f"input streams hold {streams[0].shape[0]} iterations, "
+                                 f"not {num_iters}")
+            batch = streams[0].shape[1] if streams else 1
+            stacked = (torch.stack(streams) if streams
+                       else torch.zeros((0, num_iters, batch), device=dev))
+        trace = cgra_sim(tables, stacked.contiguous())
+        with obs.span("exec.gather"):
+            m = program.mapping
+            outs: dict[int, torch.Tensor] = {}
+            for v in m.dfg.nodes:
+                if m.dfg.ops[v] == "store":
+                    cyc = m.t_abs[v] + torch.arange(num_iters, device=dev) * m.ii
+                    outs[v] = trace[cyc, m.placement[v], :]
     return outs, trace

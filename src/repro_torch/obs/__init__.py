@@ -23,6 +23,23 @@ Design contract (the "overhead contract"):
   shards written by service worker processes merge onto the parent's
   timeline with pid/tid attribution intact.
 
+**Spans on the profiler's clock.** The layer that imports torch
+(``repro_torch/kernels/__init__.py``) installs a profiler hook with
+:func:`install_profiler_hook`: a check that ``torch.profiler`` records in
+this process and a factory of ``torch.profiler.record_function``. While the
+profiler records, every ``span()`` also opens an annotation of its name, so
+the span shows in the profiler's Chrome trace as a ``user_annotation`` on the
+clock of every kernel and copy, with or without a tracer; with both on, the
+span goes to both. With neither, ``span()`` returns ``_NULL_SPAN`` after one
+read of ``_ACTIVE`` and one call of the check, and never enters the
+profiler. A forked child inherits the profiler's flag but not a working
+profiler (the compile service forks its workers while a traced benchmark
+window records), so the hook drops itself in every forked child: a worker
+never calls into the profiler.
+
+Spans keep no per-thread stack of open names; the hierarchy is recovered
+from the events' times, as ``tools/trace_report.py`` does.
+
 Serialization is the Chrome trace-event JSON flavor (``"X"`` complete
 events, ``"i"`` instants, ``"M"`` metadata) that Perfetto / ``chrome://
 tracing`` load directly; ``tools/trace_report.py`` summarizes the same
@@ -45,6 +62,7 @@ __all__ = [
     "event",
     "get_tracer",
     "incr",
+    "install_profiler_hook",
     "install_tracer",
     "merge_shards",
     "session",
@@ -55,6 +73,27 @@ __all__ = [
 # The process-global active tracer. ``None`` means tracing is disabled and
 # every obs call short-circuits through the no-op fast path below.
 _ACTIVE: "Tracer | None" = None
+
+# The profiler hook: ``_PROFILING()`` is true while torch.profiler records in
+# this process, ``_ANNOTATE(name)`` opens a profiler annotation. Both ``None``
+# until the torch layer installs them, and again in a forked child.
+_PROFILING = None
+_ANNOTATE = None
+
+
+def install_profiler_hook(profiling, annotate) -> None:
+    """Let spans open profiler annotations while ``profiling()`` is true;
+    ``annotate(name)`` returns a context manager."""
+    global _PROFILING, _ANNOTATE
+    _PROFILING, _ANNOTATE = profiling, annotate
+
+
+def _drop_profiler_hook() -> None:
+    global _PROFILING, _ANNOTATE
+    _PROFILING = _ANNOTATE = None
+
+
+os.register_at_fork(after_in_child=_drop_profiler_hook)
 
 
 def env_enabled() -> bool:
@@ -92,27 +131,34 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """A live span: records an ``"X"`` complete event on exit."""
+    """A live span: records an ``"X"`` complete event on exit when a tracer
+    is installed, and holds a profiler annotation open when one is given."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0", "_ts")
+    __slots__ = ("_tracer", "_annotation", "name", "args", "_t0", "_ts")
 
-    def __init__(self, tracer: "Tracer", name: str, args: dict):
+    def __init__(self, tracer: "Tracer | None", name: str, args: dict,
+                 annotation=None):
         self._tracer = tracer
+        self._annotation = annotation
         self.name = name
         self.args = args
         self._t0 = 0.0
         self._ts = 0.0
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        self._ts = self._tracer._now_us()
-        self._tracer._push(self.name)
+        if self._annotation is not None:
+            self._annotation.__enter__()
+        if self._tracer is not None:
+            self._t0 = time.perf_counter()
+            self._ts = self._tracer._now_us()
         return self
 
     def __exit__(self, *exc):
-        dur_us = (time.perf_counter() - self._t0) * 1e6
-        self._tracer._pop()
-        self._tracer._emit_complete(self.name, self._ts, dur_us, self.args)
+        if self._tracer is not None:
+            dur_us = (time.perf_counter() - self._t0) * 1e6
+            self._tracer._emit_complete(self.name, self._ts, dur_us, self.args)
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
         return False
 
     def set(self, **attrs):
@@ -138,29 +184,10 @@ class Tracer:
         self._lock = threading.Lock()
         self.events: list[dict] = []
         self.counters: dict[str, int] = {}
-        self._stacks: "threading.local" = threading.local()
 
     # -- time ------------------------------------------------------------
     def _now_us(self) -> float:
         return self._epoch_us + (time.perf_counter() - self._anchor) * 1e6
-
-    # -- span-stack bookkeeping (per thread, for depth-aware reports) -----
-    def _stack(self) -> list:
-        st = getattr(self._stacks, "stack", None)
-        if st is None:
-            st = self._stacks.stack = []
-        return st
-
-    def _push(self, name: str) -> None:
-        self._stack().append(name)
-
-    def _pop(self) -> None:
-        st = self._stack()
-        if st:
-            st.pop()
-
-    def depth(self) -> int:
-        return len(self._stack())
 
     # -- event emission ---------------------------------------------------
     def _emit_complete(self, name, ts_us, dur_us, args) -> None:
@@ -258,22 +285,16 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.to_chrome(), f)
 
-    # -- rollups ----------------------------------------------------------
-    def span_totals(self) -> dict[str, float]:
-        """Total duration (seconds) per span name, across all processes."""
-        totals: dict[str, float] = {}
-        with self._lock:
-            for e in self.events:
-                if e.get("ph") == "X":
-                    totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"] / 1e6
-        return totals
-
 
 # -- module-level API (the only names instrumentation sites use) ----------
 
 def span(name: str, **attrs):
-    """Context manager timing a named span; no-op when tracing is disabled."""
+    """Context manager timing a named span; also a profiler annotation while
+    the profiler records; no-op when neither is on."""
     t = _ACTIVE
+    profiling = _PROFILING
+    if profiling is not None and profiling():
+        return _Span(t, name, attrs, _ANNOTATE(name))
     if t is None:
         return _NULL_SPAN
     return _Span(t, name, attrs)
