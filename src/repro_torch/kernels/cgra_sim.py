@@ -143,25 +143,45 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def cgra_sim(tables: SimTables, inputs: torch.Tensor) -> torch.Tensor:
+def zero_trace(shape: tuple[int, int, int], device) -> torch.Tensor:
+    """A zeroed float32 trace [num_cycles, pes, B] on ``device``, enqueued
+    on its current stream under the ``obs`` span ``cgra_sim.fill``."""
+    with obs.span("cgra_sim.fill"):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def cgra_sim(tables: SimTables, inputs: torch.Tensor,
+             trace: torch.Tensor | None = None) -> torch.Tensor:
     """Run the program over ``inputs`` [num_inputs, num_iters, B] f32;
     returns the trace [tables.num_cycles(num_iters), pes, B] f32 on the
     inputs' device.
 
+    ``trace``, if given, is the trace to write: float32, contiguous, of
+    that shape on the inputs' device, and already zeroed (the run writes
+    only where a node fires); it is returned. Without it the call makes
+    one with :func:`zero_trace`.
+
     A CUDA tensor launches the CUDA kernel on the current stream (no
-    synchronisation); a CPU tensor runs :func:`cgra_sim_torch`'s loop. The
-    ``obs`` spans ``cgra_sim.fill`` (the trace's zeros) and
-    ``cgra_sim.launch`` (the kernel's launch, or the loop) mark the two
-    steps.
+    synchronisation); the inputs, the tables and a given trace must be
+    ready on that stream. A CPU tensor runs :func:`cgra_sim_torch`'s loop.
+    The ``obs`` spans ``cgra_sim.fill`` (the trace's zeros, when the call
+    makes them) and ``cgra_sim.launch`` (the kernel's launch, or the loop)
+    mark the two steps.
     """
     if inputs.device.type not in ("cuda", "cpu"):
         raise ValueError(f"cgra_sim runs on cuda or cpu, not {inputs.device}")
     _check(tables, inputs)
     _, num_iters, batch = inputs.shape
     num_cycles = tables.num_cycles(num_iters)
-    with obs.span("cgra_sim.fill"):
-        trace = torch.zeros((num_cycles, tables.num_pes, batch),
-                            dtype=torch.float32, device=inputs.device)
+    shape = (num_cycles, tables.num_pes, batch)
+    if trace is None:
+        trace = zero_trace(shape, inputs.device)
+    elif (tuple(trace.shape) != shape or trace.dtype != torch.float32
+          or trace.device != inputs.device or not trace.is_contiguous()):
+        raise ValueError(
+            f"trace: need a contiguous float32 tensor {list(shape)} on {inputs.device}, "
+            f"got {trace.dtype} {list(trace.shape)} on {trace.device}"
+        )
     with obs.span("cgra_sim.launch"):
         if inputs.device.type == "cpu":
             return _simulate_torch(tables, inputs, trace)

@@ -16,6 +16,7 @@ path (at 20×20, 325 cycles and 16384 lanes it would take 8.5 GB).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +25,7 @@ import torch
 from .. import obs
 from ..core.mapper import Mapping
 from ..core.simulate import OPCODES, _operands
-from .cgra_sim import NOPS, SimTables, cgra_sim
+from .cgra_sim import NOPS, SimTables, cgra_sim, zero_trace
 
 
 @dataclass
@@ -160,6 +161,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+#: The executor's copy stream of each CUDA device, by device index.
+_COPY_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The executor's copy stream on ``dev``, made on first use: a
+    non-blocking stream of torch's pool, never the caller's."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = _COPY_STREAMS.get(index)
+    if stream is None:
+        stream = _COPY_STREAMS.setdefault(index, torch.cuda.Stream(device=index))
+    return stream
+
+
 def cgra_run(
     program: CGRAProgram,
     inputs: dict,                    # input node -> [num_iters, B] f32
@@ -173,31 +188,56 @@ def cgra_run(
     ``inputs`` maps every input node to its streams, numpy arrays or
     tensors of shape [num_iters, B].
 
+    Streams. The trace's zero fill, the kernel, the stores' gather and the
+    returned tensors are ordered on the caller's current stream. The fill
+    is the call's first device work: it is enqueued once the inputs' nodes
+    and shapes are checked. On a CUDA device, when no input is a CUDA
+    tensor, the call's host-to-device copies (the tables, the streams and
+    their stack) then run on the executor's copy stream for that device
+    while the fill runs, and the caller's stream waits for them before the
+    kernel; ``obs`` counts such calls as ``exec.copy_stream_calls``. With
+    inputs already on the card, and on the CPU, everything runs on the
+    caller's stream. The copies are blocking, so the caller may overwrite
+    its host buffers as soon as the call returns.
+
     ``obs`` spans mark its steps, with no work or synchronisation of their
-    own: ``exec.run`` the whole call; inside it ``exec.tables`` (the host
-    tables and their copies to the device), ``exec.inputs`` (the streams'
-    copies and their stack), ``cgra_sim``'s ``cgra_sim.fill`` and
-    ``cgra_sim.launch``, and ``exec.gather`` (the stores' indexing).
+    own: ``exec.run`` the whole call; inside it ``cgra_sim.fill`` (the
+    trace's zeros), ``exec.tables`` (the host tables and their copies to
+    the device), ``exec.inputs`` (the streams' copies and their stack),
+    ``cgra_sim``'s ``cgra_sim.launch``, and ``exec.gather`` (the stores'
+    indexing).
     """
     with obs.span("exec.run"):
         dev = resolve_device(device)
         nodes = program.input_nodes()
         if sorted(inputs) != nodes:
             raise ValueError(f"inputs must cover input nodes {nodes}, got {sorted(inputs)}")
-        with obs.span("exec.tables"):
-            tables = program.sim_tables().to(dev)
-        with obs.span("exec.inputs"):
-            streams = [torch.as_tensor(inputs[v], dtype=torch.float32, device=dev)
-                       for v in nodes]
-            if any(s.shape != streams[0].shape or s.dim() != 2 for s in streams):
-                raise ValueError("every input stream must be [num_iters, B], all alike")
-            if streams and streams[0].shape[0] != num_iters:
-                raise ValueError(f"input streams hold {streams[0].shape[0]} iterations, "
-                                 f"not {num_iters}")
-            batch = streams[0].shape[1] if streams else 1
-            stacked = (torch.stack(streams) if streams
-                       else torch.zeros((0, num_iters, batch), device=dev))
-        trace = cgra_sim(tables, stacked.contiguous())
+        shapes = {tuple(np.shape(inputs[v])) for v in nodes}
+        if len(shapes) > 1 or any(len(s) != 2 for s in shapes):
+            raise ValueError("every input stream must be [num_iters, B], all alike")
+        iters, batch = shapes.pop() if shapes else (num_iters, 1)
+        if iters != num_iters:
+            raise ValueError(f"input streams hold {iters} iterations, not {num_iters}")
+        if num_iters < 1 or batch < 1:
+            raise ValueError(f"need num_iters >= 1 and B >= 1, got {num_iters} and {batch}")
+        trace = zero_trace((num_cycles(program, num_iters), program.num_pes, batch), dev)
+        on_card = any(isinstance(inputs[v], torch.Tensor) and inputs[v].is_cuda
+                      for v in nodes)
+        copy = _copy_stream(dev) if dev.type == "cuda" and not on_card else None
+        with torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
+            with obs.span("exec.tables"):
+                tables = program.sim_tables().to(dev)
+            with obs.span("exec.inputs"):
+                stacked = (torch.stack([torch.as_tensor(inputs[v], dtype=torch.float32,
+                                                        device=dev) for v in nodes])
+                           if nodes else torch.zeros((0, num_iters, batch), device=dev))
+        if copy is not None:
+            caller = torch.cuda.current_stream(dev)
+            caller.wait_stream(copy)
+            for t in (stacked, *(getattr(tables, k) for k in SimTables.TENSOR_FIELDS)):
+                t.record_stream(caller)
+            obs.incr("exec.copy_stream_calls")
+        trace = cgra_sim(tables, stacked, trace=trace)
         with obs.span("exec.gather"):
             m = program.mapping
             outs: dict[int, torch.Tensor] = {}

@@ -40,6 +40,12 @@ never calls into the profiler.
 Spans keep no per-thread stack of open names; the hierarchy is recovered
 from the events' times, as ``tools/trace_report.py`` does.
 
+**Counters** (``incr``) the port keeps:
+
+* ``exec.copy_stream_calls``: ``kernels/ops.py::cgra_run`` calls whose
+  host-to-device copies ran on the executor's copy stream behind the
+  trace's enqueued zero fill (CUDA calls with no input on the card).
+
 Serialization is the Chrome trace-event JSON flavor (``"X"`` complete
 events, ``"i"`` instants, ``"M"`` metadata) that Perfetto / ``chrome://
 tracing`` load directly; ``tools/trace_report.py`` summarizes the same

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import CGRA, map_dfg, running_example
 from repro_torch.core.benchsuite import load_suite
 from repro_torch.configs import get_config
@@ -66,6 +67,77 @@ def test_kernel_matches_plain_and_oracle(cuda, case):
     assert torch.equal(trace, cgra_sim_torch(tables, x))
     _, ref = cgra_sim_reference(prog, inputs, num_iters)
     np.testing.assert_array_equal(trace.cpu().numpy(), ref)
+
+
+def _streams(prog, num_iters, batch, seed=0):
+    rng = np.random.default_rng(seed)
+    return {v: rng.uniform(-4, 4, (num_iters, batch)).astype(np.float32).round(2)
+            for v in prog.input_nodes()}
+
+
+def _same(outs, trace, want_outs, want_trace):
+    assert sorted(outs) == sorted(want_outs)
+    assert all(torch.equal(outs[v].cpu(), want_outs[v]) for v in want_outs)
+    assert torch.equal(trace.cpu(), want_trace)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "cpu_tensor", "cuda_tensor"])
+@pytest.mark.parametrize("caller", ["current_stream", "side_stream"])
+def test_cgra_run_on_the_card_equals_the_cpu_path(cuda, kind, caller):
+    """On the caller's stream, default or not, and whatever holds the
+    streams: the card's stores and trace equal the CPU path's bit for bit,
+    and only calls with host inputs take the copy stream."""
+    prog = _program(load_suite(["gsm"])["gsm"], (4, 4))
+    num_iters, batch = 16, 2048
+    host = _streams(prog, num_iters, batch)
+    want = cgra_run(prog, host, num_iters, device="cpu")
+    given = {v: (a if kind == "numpy" else torch.from_numpy(a) if kind == "cpu_tensor"
+                 else torch.from_numpy(a).to(cuda)) for v, a in host.items()}
+    stream = torch.cuda.Stream() if caller == "side_stream" else torch.cuda.current_stream()
+    with obs.tracing() as tracer, torch.cuda.stream(stream):
+        outs, trace = cgra_run(prog, given, num_iters)
+        stream.synchronize()
+    assert tracer.counters.get("exec.copy_stream_calls", 0) == int(kind != "cuda_tensor")
+    _same(outs, trace, *want)
+
+
+def test_cgra_run_is_done_with_the_host_streams_when_it_returns(cuda):
+    """The caller may overwrite its host streams as soon as the call
+    returns, before the card has run the kernel."""
+    prog = _program(load_suite(["gsm"])["gsm"], (4, 4))
+    num_iters, batch = 16, 2048
+    host = _streams(prog, num_iters, batch, seed=1)
+    want = cgra_run(prog, {v: a.copy() for v, a in host.items()}, num_iters, device="cpu")
+    pinned = {v: torch.from_numpy(a).pin_memory() for v, a in host.items()}
+    got = [cgra_run(prog, host, num_iters), cgra_run(prog, pinned, num_iters)]
+    for a in host.values():
+        a.fill(np.nan)
+    for t in pinned.values():
+        t.fill_(float("nan"))
+    torch.cuda.synchronize()
+    for outs, trace in got:
+        _same(outs, trace, *want)
+
+
+def test_back_to_back_programs_of_other_trace_sizes(cuda):
+    """Two programs of different trace sizes called in turns with no
+    synchronisation, each call's trace dropped at once: the stores equal
+    the CPU path's, so no block of one call was reused under another."""
+    progs = [_program(load_suite(["gsm"])["gsm"], (4, 4)), _program(running_example(), (2, 2))]
+    shapes = [(16, 2048), (12, 1000)]
+    cases = [(p, n, _streams(p, n, b, seed=i)) for i, (p, (n, b)) in enumerate(zip(progs, shapes))]
+    want = [cgra_run(p, s, n, device="cpu")[0] for p, n, s in cases]
+    sizes = {cgra_run(p, s, n)[1].numel() for p, n, s in cases}
+    assert len(sizes) == 2
+    got = []
+    for _ in range(6):
+        for p, n, s in cases:
+            outs, _ = cgra_run(p, s, n)
+            got.append(outs)
+    torch.cuda.synchronize()
+    for i, outs in enumerate(got):
+        w = want[i % 2]
+        assert all(torch.equal(outs[v].cpu(), w[v]) for v in w), f"call {i}"
 
 
 def test_kernel_rejects_bad_input(cuda):

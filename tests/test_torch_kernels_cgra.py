@@ -27,7 +27,9 @@ from repro.kernels.ops import build_injection as jbuild_injection
 from repro.kernels.ops import cgra_run as jcgra_run
 from repro.kernels.ops import compile_program as jcompile_program
 from repro.kernels.ref import cgra_sim_reference as jcgra_sim_reference
+from repro_torch import obs
 from repro_torch.interop import mapping_from_plain, plain_mapping
+from repro_torch.kernels import ops
 from repro_torch.kernels.cgra_sim import SimTables, cgra_sim, cgra_sim_torch
 from repro_torch.kernels.cgra_sim import _mask16 as torch_mask16
 from repro_torch.kernels.ops import build_injection, cgra_run, compile_program
@@ -184,6 +186,65 @@ def test_cpu_runs_launch_no_kernel():
     x = torch.zeros((tables.num_inputs, 2, 3))
     assert torch.equal(cgra_sim(tables, x), cgra_sim_torch(tables, x))
     assert cgra_sim.launches == before
+
+
+def test_cpu_run_makes_no_stream_and_counts_no_copy_stream_call(monkeypatch):
+    """The CPU path keeps its plain code: no CUDA stream is made or entered,
+    and no call is counted as one whose copies ran on the copy stream."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU run touched a CUDA stream")
+
+    monkeypatch.setattr(torch.cuda, "Stream", refuse)
+    monkeypatch.setattr(torch.cuda, "stream", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    _, prog, num_iters, batch = _case("running_example_2x2_b8")
+    inputs = _inputs(prog, num_iters, batch)
+    with obs.tracing() as tracer:
+        outs, trace = cgra_run(prog, inputs, num_iters, device="cpu")
+    assert tracer.counters.get("exec.copy_stream_calls", 0) == 0
+    assert trace.device.type == "cpu" and all(o.device.type == "cpu" for o in outs.values())
+
+
+@pytest.mark.parametrize("name", ["running_example_2x2_b8", "opcover_3x3", "accum_2x2"])
+def test_cgra_sim_with_a_zeroed_trace_equals_cgra_sim_without(name):
+    _, prog, num_iters, batch = _case(name)
+    tables = prog.sim_tables()
+    inputs = _inputs(prog, num_iters, batch)
+    x = torch.stack([torch.from_numpy(inputs[v]) for v in prog.input_nodes()])
+    given = torch.zeros((tables.num_cycles(num_iters), tables.num_pes, batch))
+    got = cgra_sim(tables, x, trace=given)
+    assert got is given
+    assert torch.equal(got, cgra_sim(tables, x))
+
+
+def test_cgra_sim_rejects_a_trace_of_another_shape_or_dtype():
+    _, prog, num_iters, batch = _case("running_example_2x2_b8")
+    tables = prog.sim_tables()
+    x = torch.zeros((tables.num_inputs, num_iters, batch))
+    shape = (tables.num_cycles(num_iters), tables.num_pes, batch)
+    for bad in (torch.zeros(shape[:2] + (batch + 1,)), torch.zeros(shape, dtype=torch.float64),
+                torch.zeros(shape[::-1]).transpose(0, 2)):
+        with pytest.raises(ValueError, match="trace"):
+            cgra_sim(tables, x, trace=bad)
+
+
+def test_cgra_run_checks_the_streams_before_it_fills_the_trace(monkeypatch):
+    """The streams' shapes are checked on the host before the trace's fill,
+    the call's first device work, is enqueued."""
+    filled = []
+    monkeypatch.setattr(ops, "zero_trace", lambda *a: filled.append(a))
+    _, prog, num_iters, batch = _case("running_example_2x2_b8")
+    inputs = _inputs(prog, num_iters, batch)
+    v0, v1 = prog.input_nodes()[:2]
+    with pytest.raises(ValueError, match="iterations"):
+        cgra_run(prog, inputs, num_iters + 1, device="cpu")
+    with pytest.raises(ValueError, match="all alike"):
+        cgra_run(prog, {**inputs, v1: inputs[v1][:, :-1]}, num_iters, device="cpu")
+    with pytest.raises(ValueError, match="all alike"):
+        cgra_run(prog, {**inputs, v0: inputs[v0][0]}, num_iters, device="cpu")
+    with pytest.raises(ValueError, match="B >= 1"):
+        cgra_run(prog, {v: a[:, :0] for v, a in inputs.items()}, num_iters, device="cpu")
+    assert filled == []
 
 
 def test_cuda_without_a_gpu_raises():
