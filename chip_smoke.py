@@ -1808,7 +1808,7 @@ def phase_api(smi: str) -> tuple[int, dict]:
             run_mapping(r.name, r.mapping, rows[r.name]["wall_s"])
 
         # 4. the annealing engine on 2500 PEs
-        big = Compiler(LARGE_PRESET, resolve_options("fast"))
+        big = Compiler(LARGE_PRESET, resolve_options("fast", space_backend="anneal"))
         large = {}
         for name in LARGE_KERNELS:
             res = big.compile(suite[name])

@@ -18,8 +18,9 @@ mirroring a machine from the paper or its companion line of work:
   sit on opposite columns, 3 apart: the route-through demo machine
   (``--max-route-hops``, DESIGN.md §12).
 * ``mesh_50x50`` / ``mesh_100x100`` — large homogeneous meshes (2.5k and
-  10k PEs): the scale regime the annealing space backend opens up
-  (DESIGN.md §13; auto-selection sends them to ``anneal``).
+  10k PEs): the scale regime of DESIGN.md §13; auto-selection sends them to
+  the ``window`` engine (exact on the centred 20×20 sub-mesh, then
+  ``anneal`` on the whole fabric).
 
 ``list_presets()``/``get_preset()`` are the registry surface the CLIs use.
 """

@@ -531,8 +531,10 @@ def _map_dfg_impl(
       ``"exact"`` is the paper's complete bitset search, ``"anneal"`` the
       clustered simulated-annealing engine for very large fabrics, and
       ``"auto"`` (default) sizes the choice to the fabric — exact up to
-      ``AUTO_EXACT_MAX_PES`` (400) PEs, anneal above, with an exact-engine
-      rescue leg on deep portfolio rounds. ``space_timeout_s`` /
+      ``AUTO_EXACT_MAX_PES`` (400) PEs; above, the window engine on a
+      homogeneous mesh (exact on the centred 400-PE sub-mesh, then anneal on
+      the fabric) and anneal elsewhere; anneal gets an exact-engine rescue
+      leg on deep portfolio rounds. ``space_timeout_s`` /
       ``space_polish_timeout_s`` / ``space_timeout_growth`` shape the
       per-call wall caps (polish dives get
       ``max(space_polish_timeout_s, space_timeout_s)``; fresh rounds grow as
@@ -578,16 +580,19 @@ def _map_dfg_impl(
     # resolve now so a bad backend name raises here instead of being
     # swallowed by the per-window infeasibility handler below
     backend = resolve_backend_name(backend)
-    # "auto" is fabric-sized (exact <= AUTO_EXACT_MAX_PES PEs, anneal above,
-    # DESIGN.md §13.3); remember the request so auto-on-large can still fall
-    # back to the exact engine on deep rounds without surprising a caller
-    # who *asked* for anneal
+    # "auto" is fabric-sized (exact <= AUTO_EXACT_MAX_PES PEs; window on a
+    # larger homogeneous mesh, anneal on other large fabrics, DESIGN.md
+    # §13.3); remember the request so auto-on-large can still fall back to
+    # the exact engine on deep rounds without surprising a caller who *asked*
+    # for anneal. The window engine runs the exact engine on its sub-mesh
+    # first, so a rescue on the whole fabric would only repeat that search
+    # at a wider word, past the probe's budget: it gets none
     space_auto = space_backend == "auto"
     space_backend = resolve_space_backend_name(space_backend, cgra)
     space_engine = create_space_backend(space_backend)
     exact_fallback = (
         create_space_backend("exact")
-        if space_auto and space_backend != "exact" else None
+        if space_auto and space_backend == "anneal" else None
     )
     stats = MapperStats()
     stats.space_backend = space_backend
@@ -733,6 +738,9 @@ def _map_dfg_impl(
     # the engine's result, so a placement the register check rejects reads
     # found=False with outcome "found")
     probe_outcome = [""]
+    # where its placement came from: "window" (the window engine's sub-mesh)
+    # or "fabric"; "" where the engines found none
+    probe_region = [""]
 
     def try_space(
         sol: TimeSolution, w: _Window, rnd: int,
@@ -747,7 +755,7 @@ def _map_dfg_impl(
             sp.set(found=mapping is not None,
                    nodes=stats.space_nodes_visited - n0,
                    restarts=stats.space_restarts - r0,
-                   outcome=probe_outcome[0])
+                   outcome=probe_outcome[0], region=probe_region[0])
             return mapping
 
     def _try_space(
@@ -808,6 +816,8 @@ def _map_dfg_impl(
         if obs.enabled():
             probe_outcome[0] = sstats.outcome(
                 space is not None, should_stop is not None and should_stop())
+            probe_region[0] = (
+                (sstats.region or "fabric") if space is not None else "")
         if space is None:
             stats.mono_failures += 1
             return None

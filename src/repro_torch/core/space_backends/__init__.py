@@ -1,10 +1,11 @@
 """Pluggable space backends (DESIGN.md §13).
 
-Importing this package registers both engines; resolve by name (or pass an
-instance straight through)::
+Importing this package registers the three engines; resolve by name (or
+pass an instance straight through)::
 
     from repro_torch.core.space_backends import resolve_space_backend
-    backend = resolve_space_backend("auto", cgra)   # exact <=400 PEs, else anneal
+    backend = resolve_space_backend("auto", cgra)   # exact <=400 PEs, else
+                                                    # window (mesh) or anneal
     sol = backend.place(dfg, cgra, labels, ii, budget=SpaceBudget(timeout_s=2.0))
 """
 
@@ -25,6 +26,7 @@ from .base import (
 )
 from .anneal import AnnealSpaceBackend
 from .exact import ExactSpaceBackend, find_monomorphism
+from .window import WindowSpaceBackend, window_of
 
 __all__ = [
     "AUTO_EXACT_MAX_PES",
@@ -35,6 +37,7 @@ __all__ = [
     "SpaceBudget",
     "SpaceSolution",
     "SpaceStats",
+    "WindowSpaceBackend",
     "available_space_backends",
     "check_monomorphism",
     "check_routes",
@@ -43,4 +46,5 @@ __all__ = [
     "register_space_backend",
     "resolve_space_backend",
     "resolve_space_backend_name",
+    "window_of",
 ]

@@ -31,8 +31,10 @@ from ..time_backends.base import mov_slot_headroom
 
 #: ``"auto"`` resolution threshold: fabrics with at most this many PEs use
 #: the exact engine (complete, bit-identical to the paper's search); larger
-#: ones use the annealing backend, whose per-move cost does not grow with
-#: the bitmask word width. 400 = the 20×20 grid of the paper's Fig. 5 sweep.
+#: homogeneous meshes use the window engine (the exact engine on a centred
+#: sub-mesh of at most this many PEs, then anneal), other larger fabrics the
+#: annealing backend, whose per-move cost does not grow with the bitmask
+#: word width. 400 = the 20×20 grid of the paper's Fig. 5 sweep.
 AUTO_EXACT_MAX_PES = 400
 
 
@@ -63,6 +65,9 @@ class SpaceStats:
     route_failures: int = 0        # complete placements whose movs didn't fit
     deadline_stops: int = 0        # dives (or restarts) cut by the wall clock
     budget_stops: int = 0          # dives stopped by their node/move budget
+    # where the window engine's placement came from: "window" (the exact
+    # engine on the centred sub-mesh) or "fabric"; "" from the other engines
+    region: str = ""
 
     def outcome(self, found: bool, cancelled: bool = False) -> str:
         """How a probe that these stats count ended, by precedence:
@@ -142,14 +147,18 @@ def resolve_space_backend_name(name: str, cgra: CGRA | None = None) -> str:
     """Canonicalise an alias/auto request to a concrete registered backend.
 
     ``"auto"`` needs the target fabric: exact up to
-    :data:`AUTO_EXACT_MAX_PES` PEs, anneal above (DESIGN.md §13.3).
+    :data:`AUTO_EXACT_MAX_PES` PEs; above, the window engine on a
+    homogeneous mesh and anneal elsewhere (DESIGN.md §13.3).
     """
     if name == "auto":
         if cgra is None:
             raise ValueError(
                 "resolving the 'auto' space backend needs the target CGRA"
             )
-        return "exact" if cgra.num_pes <= AUTO_EXACT_MAX_PES else "anneal"
+        if cgra.num_pes <= AUTO_EXACT_MAX_PES:
+            return "exact"
+        from .window import has_window   # window.py imports this module
+        return "window" if has_window(cgra) else "anneal"
     name = _ALIASES.get(name, name)
     if name not in _REGISTRY:
         raise ValueError(f"unknown space backend {name!r}")

@@ -125,11 +125,24 @@ def test_deterministic_anneal_50x50_matches_reference():
 
 
 def test_auto_resolves_to_anneal_above_400_pes_in_both_packages():
-    assert resolve_space_backend_name("auto", CGRA(21, 21)) == "anneal"
+    """Above 400 PEs the reference's auto takes anneal everywhere; the port's
+    takes the window engine on a homogeneous mesh (the exact engine on a
+    centred 400-PE sub-mesh first) and anneal on every other fabric, where
+    its mapping stays the reference's."""
     assert jresolve_name("auto", JCGRA(21, 21)) == "anneal"
-    assert resolve_space_backend_name("auto", get_preset("mesh_50x50").cgra()) == "anneal"
+    assert resolve_space_backend_name("auto", CGRA(21, 21)) == "window"
+    assert resolve_space_backend_name("auto", get_preset("mesh_50x50").cgra()) == "window"
     kw = dict(deterministic=True, use_cache=False, seed=1)
     mine = map_dfg(load_suite(["bitcount"])["bitcount"], CGRA(21, 21), **kw)
     ref = jmap_dfg(jload_suite(["bitcount"])["bitcount"], JCGRA(21, 21), **kw)
-    assert mine.ok and mine.stats.space_backend == ref.stats.space_backend == "anneal"
-    assert _key(mine.mapping) == _key(ref.mapping)
+    assert mine.ok and ref.ok and ref.stats.space_backend == "anneal"
+    assert mine.stats.space_backend == "window" and mine.mapping.validate() == []
+    assert mine.mapping.ii <= ref.mapping.ii
+    for topology in ("torus", "diagonal"):
+        assert resolve_space_backend_name("auto", CGRA(21, 21, topology=topology)) == "anneal"
+        mine = map_dfg(load_suite(["bitcount"])["bitcount"],
+                       CGRA(21, 21, topology=topology), **kw)
+        ref = jmap_dfg(jload_suite(["bitcount"])["bitcount"],
+                       JCGRA(21, 21, topology=topology), **kw)
+        assert mine.ok and mine.stats.space_backend == ref.stats.space_backend == "anneal"
+        assert _key(mine.mapping) == _key(ref.mapping)

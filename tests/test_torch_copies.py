@@ -9,7 +9,8 @@ package name is rewritten to the reference's in import statements and in
 string constants (a CLI's ``prog``, a help text naming a module). The two
 trees must then be equal, node for node. The mapper's search modules in
 ``PROBE_OUTCOMES`` add only how a probe ended: their trees are compared with
-those statements and ``outcome=`` arguments taken out of both.
+those statements and ``outcome=`` arguments taken out of both. A statement
+in ``PORT_EDITS`` is changed in the reference's text before it is parsed.
 """
 
 import ast
@@ -40,13 +41,53 @@ roofline/report.py
 #: cancelled, timeout, node_budget, exhausted): SpaceStats' counts of dives
 #: stopped by their deadline or their budget, taken where a dive already
 #: stops, ``SpaceStats.outcome`` and the probe spans' ``outcome``
-#: (tests/test_torch_obs.py). Every statement that names one of these, and
-#: every ``outcome=`` argument, is taken out of both trees before comparing.
+#: (tests/test_torch_obs.py), and where a space probe's placement came from
+#: (``region``: the window engine's sub-mesh or the fabric). Every statement
+#: that names one of these, and every ``outcome=`` and ``region=`` argument,
+#: is taken out of both trees before comparing.
 PROBE_OUTCOMES = {
     "modules": {"core/mapper.py", "core/space_backends/anneal.py",
                 "core/space_backends/base.py", "core/space_backends/exact.py",
                 "core/time_smt.py"},
-    "names": {"deadline_stops", "budget_stops", "outcome", "probe_outcome"},
+    "names": {"deadline_stops", "budget_stops", "outcome", "probe_outcome",
+              "region", "probe_region"},
+    "keywords": {"outcome", "region"},
+}
+
+_WINDOW = ("the port's window engine (core/space_backends/window.py), which "
+           "the reference lacks: the exact engine on the centred 400-PE "
+           "sub-mesh of a larger homogeneous mesh, then anneal "
+           "(tests/test_torch_window.py)")
+
+#: single statements that the port changes in a copied module, as (the
+#: reference's text, the port's text, why): the reference's source is edited
+#: so before both are parsed, and the rest of the module stays pinned
+PORT_EDITS = {
+    "core/space_backends/__init__.py": [
+        ("from .exact import ExactSpaceBackend, find_monomorphism\n",
+         "from .exact import ExactSpaceBackend, find_monomorphism\n"
+         "from .window import WindowSpaceBackend, window_of\n",
+         "registers and exports " + _WINDOW),
+        ('"SpaceStats",\n', '"SpaceStats",\n    "WindowSpaceBackend",\n', "exports it"),
+        ('"resolve_space_backend_name",\n]', '"resolve_space_backend_name",\n    "window_of",\n]',
+         "exports its window's geometry"),
+    ],
+    "core/space_backends/base.py": [(
+        '        return "exact" if cgra.num_pes <= AUTO_EXACT_MAX_PES else "anneal"\n',
+        '        if cgra.num_pes <= AUTO_EXACT_MAX_PES:\n'
+        '            return "exact"\n'
+        '        from .window import has_window\n'
+        '        return "window" if has_window(cgra) else "anneal"\n',
+        "auto takes " + _WINDOW + " where the reference takes anneal",
+    )],
+    "core/mapper.py": [(
+        'if space_auto and space_backend != "exact" else None',
+        'if space_auto and space_backend == "anneal" else None',
+        "auto's exact-engine rescue leg on deep rounds joins anneal alone: "
+        "the port's window engine, which auto takes on a homogeneous mesh "
+        "above 400 PEs, runs the exact engine on its sub-mesh first "
+        "(tests/test_torch_window.py)",
+    )],
 }
 
 #: modules of the reference's layout that the port rewrites, and why
@@ -113,10 +154,12 @@ class _Normalise(ast.NodeTransformer):
 class _StripOutcomes(ast.NodeTransformer):
     """Takes out every statement that names one of ``names`` (as a variable,
     attribute, function or field) once its own inner such statements are
-    gone, every ``outcome=`` argument, and every ``if`` left with no body."""
+    gone, every argument named in ``keywords``, and every ``if`` left with no
+    body."""
 
-    def __init__(self, names):
+    def __init__(self, names, keywords):
         self.names = names
+        self.keywords = keywords
 
     def _names_one(self, node):
         for sub in ast.walk(node):
@@ -128,7 +171,7 @@ class _StripOutcomes(ast.NodeTransformer):
 
     def visit_Call(self, node):
         self.generic_visit(node)
-        node.keywords = [k for k in node.keywords if k.arg != "outcome"]
+        node.keywords = [k for k in node.keywords if k.arg not in self.keywords]
         return node
 
     def generic_visit(self, node):
@@ -141,21 +184,28 @@ class _StripOutcomes(ast.NodeTransformer):
         return node
 
 
-def _tree(path, strip=None):
+def _tree(path, strip=None, edits=()):
     with open(path) as f:
-        tree = ast.parse(f.read())
+        text = f.read()
+    for old, new, _ in edits:
+        assert text.count(old) == 1, f"{path}: {old!r} is not there once"
+        text = text.replace(old, new)
+    tree = ast.parse(text)
     if strip is not None:
-        tree = _StripOutcomes(strip).visit(tree)
+        tree = _StripOutcomes(strip["names"], strip["keywords"]).visit(tree)
     return ast.dump(_Normalise().visit(tree), include_attributes=False)
 
 
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_equals_reference(module):
-    strip = (PROBE_OUTCOMES["names"] if module in PROBE_OUTCOMES["modules"]
-             else None)
+    strip = PROBE_OUTCOMES if module in PROBE_OUTCOMES["modules"] else None
+    edits = PORT_EDITS.get(module, ())
     mine = _tree(os.path.join(_SRC, "repro_torch", module), strip)
-    ref = _tree(os.path.join(_SRC, "repro", module), strip)
+    ref = _tree(os.path.join(_SRC, "repro", module), strip, edits)
     assert mine == ref, f"{module} drifted from src/repro/{module}"
+    if edits:
+        # each edit is one the port really makes
+        assert mine != _tree(os.path.join(_SRC, "repro", module), strip)
 
 
 @pytest.mark.parametrize("module", sorted(DIFFER))

@@ -158,10 +158,13 @@ def test_unported_backends_raise(tmp_path):
     assert mine.ok and ref.ok and mine.stats.space_backend == "anneal"
     assert (mine.mapping.ii, mine.mapping.t_abs, mine.mapping.placement) == (
         ref.mapping.ii, ref.mapping.t_abs, ref.mapping.placement)
-    for rows, cols, want in ((20, 20, "exact"), (21, 20, "anneal")):
-        # auto is fabric-sized: exact up to 400 PEs, anneal above
-        assert resolve_space_backend_name("auto", CGRA(rows, cols)) == want
-        assert jresolve_space_backend_name("auto", JCGRA(rows, cols)) == want
+    # auto is fabric-sized: exact up to 400 PEs in both packages
+    assert resolve_space_backend_name("auto", CGRA(20, 20)) == "exact"
+    assert jresolve_space_backend_name("auto", JCGRA(20, 20)) == "exact"
+    # above, the reference takes anneal and the port, on a homogeneous mesh,
+    # the window engine (tests/test_torch_window.py)
+    assert resolve_space_backend_name("auto", CGRA(21, 20)) == "window"
+    assert jresolve_space_backend_name("auto", JCGRA(21, 20)) == "anneal"
     mine_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
     clear_mapping_cache()
     jclear_mapping_cache()

@@ -175,10 +175,10 @@ def test_compile_pool_forks_after_cuda(cuda, tmp_path):
 def test_anneal_50x50_mapping_runs_on_the_card(cuda):
     """A mapping of the annealing engine on the 2500-PE preset, through the
     API, executed by the kernel: equal to the plain version and the oracle."""
-    from repro_torch.api import Compiler
+    from repro_torch.api import Compiler, resolve_options
 
-    res = Compiler("mesh_50x50", "deterministic-ci").compile(
-        load_suite(["backprop"])["backprop"])
+    opts = resolve_options("deterministic-ci", space_backend="anneal")
+    res = Compiler("mesh_50x50", opts).compile(load_suite(["backprop"])["backprop"])
     assert res.ok and res.space_backend == "anneal"
     prog = compile_program(res.mapping)
     num_iters, batch = 6, 300
