@@ -175,6 +175,24 @@ def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
     return stream
 
 
+def _stage(streams: list, shape: tuple[int, int], dev: torch.device) -> torch.Tensor:
+    """The host ``streams`` as one float32 tensor [len(streams), *shape] on
+    ``dev``, copied through a page-locked block on the current stream.
+
+    Each stream is copied on the host into its row of the block, and its
+    row's asynchronous copy to the device is issued at once, so the next
+    row's host copy overlaps it. The block comes from torch's caching host
+    allocator: pinned once per power-of-two size, and handed out again only
+    after the copies recorded on it have ended.
+    """
+    staged = torch.empty((len(streams), *shape), dtype=torch.float32, device=dev)
+    block = torch.empty(staged.shape, dtype=torch.float32, pin_memory=True)
+    for src, row, out in zip(streams, block, staged):
+        row.copy_(torch.as_tensor(src))
+        out.copy_(row, non_blocking=True)
+    return staged
+
+
 def cgra_run(
     program: CGRAProgram,
     inputs: dict,                    # input node -> [num_iters, B] f32
@@ -192,18 +210,26 @@ def cgra_run(
     returned tensors are ordered on the caller's current stream. The fill
     is the call's first device work: it is enqueued once the inputs' nodes
     and shapes are checked. On a CUDA device, when no input is a CUDA
-    tensor, the call's host-to-device copies (the tables, the streams and
-    their stack) then run on the executor's copy stream for that device
-    while the fill runs, and the caller's stream waits for them before the
-    kernel; ``obs`` counts such calls as ``exec.copy_stream_calls``. With
-    inputs already on the card, and on the CPU, everything runs on the
-    caller's stream. The copies are blocking, so the caller may overwrite
-    its host buffers as soon as the call returns.
+    tensor, the call's host-to-device copies (the tables and the streams)
+    then run on the executor's copy stream for that device while the fill
+    runs, and the caller's stream waits for them before the kernel; ``obs``
+    counts such calls as ``exec.copy_stream_calls``. The streams are staged:
+    each is copied on the host into its row of a page-locked block
+    [num_inputs, num_iters, B], and the row's asynchronous copy into the
+    same row of the device's stacked streams is issued at once, so that it
+    overlaps the next row's host copy. The block comes from torch's caching
+    host allocator, which pins a block once per power-of-two size and hands
+    it out again only after the copies recorded on it have ended; ``obs``
+    counts these calls as ``exec.staged_calls``. With inputs already on the card, and on
+    the CPU, everything runs on the caller's stream and nothing is pinned.
+    Every host copy out of the caller's buffers has ended when the call
+    returns, so the caller may overwrite its host buffers as soon as the
+    call returns.
 
     ``obs`` spans mark its steps, with no work or synchronisation of their
     own: ``exec.run`` the whole call; inside it ``cgra_sim.fill`` (the
     trace's zeros), ``exec.tables`` (the host tables and their copies to
-    the device), ``exec.inputs`` (the streams' copies and their stack),
+    the device), ``exec.inputs`` (the streams' copies to the device),
     ``cgra_sim``'s ``cgra_sim.launch``, and ``exec.gather`` (the stores'
     indexing).
     """
@@ -228,15 +254,20 @@ def cgra_run(
             with obs.span("exec.tables"):
                 tables = program.sim_tables().to(dev)
             with obs.span("exec.inputs"):
-                stacked = (torch.stack([torch.as_tensor(inputs[v], dtype=torch.float32,
-                                                        device=dev) for v in nodes])
-                           if nodes else torch.zeros((0, num_iters, batch), device=dev))
+                if copy is not None:
+                    stacked = _stage([inputs[v] for v in nodes], (num_iters, batch), dev)
+                elif nodes:
+                    stacked = torch.stack([torch.as_tensor(inputs[v], dtype=torch.float32,
+                                                           device=dev) for v in nodes])
+                else:
+                    stacked = torch.zeros((0, num_iters, batch), device=dev)
         if copy is not None:
             caller = torch.cuda.current_stream(dev)
             caller.wait_stream(copy)
             for t in (stacked, *(getattr(tables, k) for k in SimTables.TENSOR_FIELDS)):
                 t.record_stream(caller)
             obs.incr("exec.copy_stream_calls")
+            obs.incr("exec.staged_calls")
         trace = cgra_sim(tables, stacked, trace=trace)
         with obs.span("exec.gather"):
             m = program.mapping

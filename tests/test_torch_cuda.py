@@ -6,6 +6,8 @@ Imports nothing of JAX, so it runs where JAX is not installed.
 """
 
 import dataclasses
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_backward_torch, flash_attention_flops, flash_attention_lse,
     flash_attention_padded, flash_attention_torch,
 )
-from repro_torch.kernels.ops import cgra_run, compile_program
+from repro_torch.kernels.ops import _copy_stream, cgra_run, compile_program
 from repro_torch.kernels.ref import cgra_sim_reference
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train
@@ -86,7 +88,7 @@ def _same(outs, trace, want_outs, want_trace):
 def test_cgra_run_on_the_card_equals_the_cpu_path(cuda, kind, caller):
     """On the caller's stream, default or not, and whatever holds the
     streams: the card's stores and trace equal the CPU path's bit for bit,
-    and only calls with host inputs take the copy stream."""
+    and only calls with host inputs take the copy stream and are staged."""
     prog = _program(load_suite(["gsm"])["gsm"], (4, 4))
     num_iters, batch = 16, 2048
     host = _streams(prog, num_iters, batch)
@@ -98,6 +100,7 @@ def test_cgra_run_on_the_card_equals_the_cpu_path(cuda, kind, caller):
         outs, trace = cgra_run(prog, given, num_iters)
         stream.synchronize()
     assert tracer.counters.get("exec.copy_stream_calls", 0) == int(kind != "cuda_tensor")
+    assert tracer.counters.get("exec.staged_calls", 0) == int(kind != "cuda_tensor")
     _same(outs, trace, *want)
 
 
@@ -138,6 +141,96 @@ def test_back_to_back_programs_of_other_trace_sizes(cuda):
     for i, outs in enumerate(got):
         w = want[i % 2]
         assert all(torch.equal(outs[v].cpu(), w[v]) for v in w), f"call {i}"
+
+
+def _staging_cases():
+    """Programs of 2, 4, 5 and 6 inputs, each with its own stream shape."""
+    suite = load_suite(["bitcount", "gsm", "backprop"])
+    return [(_program(suite["bitcount"], (2, 2)), 9, 4096),
+            (_program(suite["gsm"], (4, 4)), 16, 2048),
+            (_program(running_example(), (2, 2)), 12, 1000),
+            (_program(suite["backprop"], (4, 4)), 20, 512)]
+
+
+def test_staged_calls_of_other_input_counts_back_to_back(cuda):
+    """Calls of other input counts and stream sizes back to back with no
+    synchronisation, the copy stream held behind a long sleep and each host
+    buffer overwritten with NaN as soon as its call returns: the stores and
+    traces equal the CPU path's bit for bit, so no page-locked block was
+    rewritten under a copy still in flight. The tables are put on the card
+    beforehand, so no pageable copy synchronises the copy stream, and a
+    first pass leaves the device memory of every call cached, so no
+    allocation does."""
+    cases = _staging_cases() * 3
+    assert len({len(p.input_nodes()) for p, _, _ in cases}) == 4
+    want = [cgra_run(p, _streams(p, n, b, seed=i), n, device="cpu")
+            for i, (p, n, b) in enumerate(cases)]
+    for p, _, _ in cases[:4]:
+        p.sim_tables = lambda tables=p.sim_tables().to(cuda): tables
+
+    def run_all():
+        got = []
+        for i, (p, n, b) in enumerate(cases):
+            host = _streams(p, n, b, seed=i)
+            got.append(cgra_run(p, host, n))
+            for a in host.values():
+                a.fill(np.nan)
+        return got
+
+    run_all()
+    torch.cuda.synchronize()
+    with obs.tracing() as tracer:
+        with torch.cuda.stream(_copy_stream(cuda)):
+            torch.cuda._sleep(400_000_000)
+        got = run_all()
+        torch.cuda.synchronize()
+    assert tracer.counters.get("exec.staged_calls", 0) == len(cases)
+    for (outs, trace), w in zip(got, want):
+        _same(outs, trace, *w)
+
+
+def test_staged_calls_pin_nothing_after_one_call_of_each_size(cuda):
+    """Once each program has run, calls that wait for their stores, as a
+    user's batches do, reuse the page-locked blocks: nothing more is
+    pinned."""
+    cases = _staging_cases()
+    for i, (p, n, b) in enumerate(cases):
+        cgra_run(p, _streams(p, n, b, seed=i), n)
+    torch.cuda.synchronize()
+    pinned = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(3):
+        for i, (p, n, b) in enumerate(cases):
+            outs, _ = cgra_run(p, _streams(p, n, b, seed=i), n)
+            for o in outs.values():
+                o.cpu()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == pinned
+
+
+def test_staged_calls_from_threads_on_one_device(cuda):
+    """Four host threads call ``cgra_run`` on one device at once, each
+    staging its own streams: every call's stores equal the CPU path's."""
+    cases = _staging_cases()
+    want = [cgra_run(p, _streams(p, n, b, seed=i), n, device="cpu")[0]
+            for i, (p, n, b) in enumerate(cases)]
+
+    def work(t):
+        got = []
+        for r in range(8):
+            i = (t + r) % len(cases)
+            p, n, b = cases[i]
+            outs, _ = cgra_run(p, _streams(p, n, b, seed=i), n)
+            got.append((i, {v: o.cpu() for v, o in outs.items()}))
+        return got
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            results = [f.result(timeout=120) for f in [pool.submit(work, t) for t in range(4)]]
+    finally:
+        sys.setswitchinterval(interval)
+    for i, got in (call for res in results for call in res):
+        assert all(torch.equal(got[v], want[i][v]) for v in want[i]), f"case {i}"
 
 
 def test_kernel_rejects_bad_input(cuda):

@@ -190,18 +190,29 @@ def test_cpu_runs_launch_no_kernel():
 
 def test_cpu_run_makes_no_stream_and_counts_no_copy_stream_call(monkeypatch):
     """The CPU path keeps its plain code: no CUDA stream is made or entered,
-    and no call is counted as one whose copies ran on the copy stream."""
+    no memory is pinned, and no call is counted as one whose copies ran on
+    the copy stream or were staged."""
     def refuse(*args, **kwargs):
-        raise AssertionError("a CPU run touched a CUDA stream")
+        raise AssertionError("a CPU run touched a CUDA stream or pinned memory")
+
+    empty = torch.empty
+
+    def empty_unpinned(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            refuse()
+        return empty(*args, **kwargs)
 
     monkeypatch.setattr(torch.cuda, "Stream", refuse)
     monkeypatch.setattr(torch.cuda, "stream", refuse)
     monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    monkeypatch.setattr(torch, "empty", empty_unpinned)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", refuse)
     _, prog, num_iters, batch = _case("running_example_2x2_b8")
     inputs = _inputs(prog, num_iters, batch)
     with obs.tracing() as tracer:
         outs, trace = cgra_run(prog, inputs, num_iters, device="cpu")
     assert tracer.counters.get("exec.copy_stream_calls", 0) == 0
+    assert tracer.counters.get("exec.staged_calls", 0) == 0
     assert trace.device.type == "cpu" and all(o.device.type == "cpu" for o in outs.values())
 
 
