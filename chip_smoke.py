@@ -651,7 +651,7 @@ def phase_small() -> None:
         else:
             inputs = {v: np.full((iters, batch), const, np.float32)
                       for v in prog.input_nodes()}
-        tables = prog.sim_tables().to("cuda")
+        tables = prog.tables.to("cuda")
         x = stacked(prog, inputs)
         got = cgra_sim(tables, x)
         plain = cgra_sim_torch(tables, x)
@@ -701,7 +701,7 @@ def check_full(name: str, run: dict, chunk: int = FULL_BATCH) -> float:
     check(tuple(trace.shape) == (C, prog.num_pes, FULL_BATCH), f"{name}: trace shape")
     for v, out in run["outs"].items():
         check(tuple(out.shape) == (FULL_ITERS, FULL_BATCH), f"{name}: store {v} shape")
-    tables = prog.sim_tables().to("cuda")
+    tables = prog.tables.to("cuda")
     x = stacked(prog, inputs)
     err, same = 0.0, True
     for lo in range(0, FULL_BATCH, chunk):
@@ -765,7 +765,7 @@ def phase_timing(runs: dict) -> dict:
     rows = {}
     for name, run in runs.items():
         prog = run["prog"]
-        tables = prog.sim_tables().to("cuda")
+        tables = prog.tables.to("cuda")
         x = stacked(prog, run["inputs"])
         shape = (tables.num_cycles(FULL_ITERS), prog.num_pes, FULL_BATCH)
         ms = time_ms(lambda: cgra_sim(tables, x), TIMED_RUNS)
@@ -1857,7 +1857,7 @@ def phase_api(smi: str) -> tuple[int, dict]:
 
         # heartwall's kernel and its zero-fill alone, as phase 5 times them
         prog, inputs = large[LARGE_KERNELS[0]]
-        tables = prog.sim_tables().to("cuda")
+        tables = prog.tables.to("cuda")
         x = stacked(prog, inputs)
         shape = (tables.num_cycles(FULL_ITERS), prog.num_pes, FULL_BATCH)
         ms = time_ms(lambda: cgra_sim(tables, x), TIMED_RUNS)
@@ -1942,7 +1942,7 @@ def run_fuzz_case(label: str, mapping, seed: int) -> int:
     check(tuple(trace.shape) == (prog.mapping.schedule_length + (FUZZ_ITERS - 1) * prog.ii,
                                  prog.num_pes, FUZZ_BATCH if inputs else 1),
           f"{label}: trace shape {tuple(trace.shape)}")
-    tables = prog.sim_tables().to("cuda")
+    tables = prog.tables.to("cuda")
     x = (stacked(prog, inputs) if inputs
          else torch.zeros((0, FUZZ_ITERS, 1), device="cuda"))
     check(same_values(trace, cgra_sim_torch(tables, x)), f"{label}: kernel != plain version")

@@ -98,7 +98,7 @@ for r in batch:
     inputs = {v: rng.uniform(-4, 4, (8, 64)).astype(np.float32) for v in prog.input_nodes()}
     _, trace = cgra_run(prog, inputs, 8, device=device)
     x = torch.stack([torch.as_tensor(inputs[v], device=device) for v in prog.input_nodes()])
-    assert torch.equal(trace, cgra_sim_torch(prog.sim_tables().to(device), x)), r.name
+    assert torch.equal(trace, cgra_sim_torch(prog.tables.to(device), x)), r.name
 print(f"batched runs on {device}: {sum(r.ok for r in batch)} kernels, 64 lanes x 8 "
       "iterations, traces equal to the plain version's")
 

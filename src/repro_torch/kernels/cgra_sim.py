@@ -44,7 +44,8 @@ class SimTables:
     Node ``n`` of step ``k`` lies in ``step_ptr[k] <= n < step_ptr[k + 1]``;
     it fires at cycles ``t0[n] + it * ii`` for ``0 <= it < num_iters``.
     Built on the host by :meth:`from_numpy`, which validates every index
-    once, then moved whole with :meth:`to`.
+    once (``kernels/ops.py::compile_program`` builds a program's), then
+    moved whole with :meth:`to`.
     """
 
     ii: int
@@ -272,8 +273,7 @@ def cgra_sim_torch(tables: SimTables, inputs: torch.Tensor) -> torch.Tensor:
     """
     _check(tables, inputs)
     _, num_iters, batch = inputs.shape
-    trace = torch.zeros((tables.num_cycles(num_iters), tables.num_pes, batch),
-                        dtype=torch.float32, device=inputs.device)
+    trace = zero_trace((tables.num_cycles(num_iters), tables.num_pes, batch), inputs.device)
     return _simulate_torch(tables, inputs, trace)
 
 

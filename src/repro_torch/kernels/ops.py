@@ -1,9 +1,11 @@
 """Program lowering and the batched executor.
 
-``compile_program`` lowers a space-time Mapping (core/mapper.py) into dense
-per-step tables, array for array as the JAX package's
-``kernels/ops.py::compile_program`` does (its one-hot routing and opcode
-tables included, so the two lowerings can be compared).
+``compile_program`` lowers a space-time Mapping (core/mapper.py) once, into
+the [II, pes] integer grids of the JAX package's
+``kernels/ops.py::compile_program`` (array for array; the oracle in
+``ref.py`` reads them) and, from those grids, the per-node ``SimTables``
+that the executor reads. The JAX package's one-hot routing and opcode
+tables feed only its Pallas kernel and are not built here.
 
 ``cgra_run`` executes a compiled program over batched input streams on a
 torch device and returns per-store-node outputs and the full trace, through
@@ -25,52 +27,30 @@ import torch
 from .. import obs
 from ..core.mapper import Mapping
 from ..core.simulate import OPCODES, _operands
-from .cgra_sim import NOPS, SimTables, cgra_sim, zero_trace
+from .cgra_sim import SimTables, cgra_sim, zero_trace
 
 
 @dataclass
 class CGRAProgram:
-    """Dense encoding of one mapped loop kernel."""
+    """One mapped loop kernel, lowered once."""
 
     mapping: Mapping
     ii: int
     ring: int
     num_pes: int
-    # one-hot tables, per kernel step
-    route_a: np.ndarray    # [II, pes, ring*pes] f32
-    route_b: np.ndarray    # [II, pes, ring*pes] f32
-    op_sel: np.ndarray     # [II, pes, NOPS] f32
+    # [II, pes] grids, the oracle's input (ref.py) and the tables' source
     imm: np.ndarray        # [II, pes] f32
-    # integer views (used by ref.py and the executor's tables)
     op_id: np.ndarray      # [II, pes] int32 (-1 = idle)
     node_at: np.ndarray    # [II, pes] int32 (-1 = idle)
     src_pe: np.ndarray     # [II, pes, 2] int32
     src_delta: np.ndarray  # [II, pes, 2] int32 (cycles since operand produced)
+    # what the executor reads: per node, grouped by step, on the host
+    tables: SimTables
 
     def input_nodes(self) -> list[int]:
         """Input node ids in stream-slot order (ascending)."""
         dfg = self.mapping.dfg
         return [v for v in dfg.nodes if dfg.ops[v] == "input"]
-
-    def sim_tables(self) -> SimTables:
-        """The per-node, step-grouped tables the executor reads (host)."""
-        m = self.mapping
-        slot_of = {v: i for i, v in enumerate(self.input_nodes())}
-        order = [(k, pe) for k in range(self.ii) for pe in range(self.num_pes)
-                 if self.node_at[k, pe] >= 0]
-        counts = np.bincount([k for k, _ in order], minlength=self.ii)
-        nodes = [int(self.node_at[k, pe]) for k, pe in order]
-        return SimTables.from_numpy(
-            ii=self.ii, num_pes=self.num_pes, num_inputs=len(slot_of),
-            step_ptr=np.concatenate([[0], np.cumsum(counts)]),
-            pe=np.array([pe for _, pe in order]),
-            op=np.array([self.op_id[k, pe] for k, pe in order]),
-            t0=np.array([m.t_abs[v] for v in nodes]),
-            src_pe=np.array([self.src_pe[k, pe] for k, pe in order]).reshape(-1, 2),
-            src_delta=np.array([self.src_delta[k, pe] for k, pe in order]).reshape(-1, 2),
-            imm=np.array([self.imm[k, pe] for k, pe in order], np.float32),
-            in_slot=np.array([slot_of.get(v, -1) for v in nodes]),
-        )
 
 
 def compile_program(mapping: Mapping) -> CGRAProgram:
@@ -90,9 +70,6 @@ def compile_program(mapping: Mapping) -> CGRAProgram:
             srcs[v].append(placement[e.src])
     ring = max((d for ds in deltas for d in ds), default=1)
 
-    route_a = np.zeros((ii, pes, ring * pes), np.float32)
-    route_b = np.zeros((ii, pes, ring * pes), np.float32)
-    op_sel = np.zeros((ii, pes, NOPS), np.float32)
     imm = np.zeros((ii, pes), np.float32)
     op_id = np.full((ii, pes), -1, np.int32)
     node_at = np.full((ii, pes), -1, np.int32)
@@ -101,22 +78,28 @@ def compile_program(mapping: Mapping) -> CGRAProgram:
 
     for v in dfg.nodes:
         k, pe = labels[v], placement[v]
-        op = dfg.ops[v]
-        op_sel[k, pe, OPCODES[op]] = 1.0
-        op_id[k, pe] = OPCODES[op]
+        op_id[k, pe] = OPCODES[dfg.ops[v]]
         node_at[k, pe] = v
         imm[k, pe] = dfg.imms[v]
         for slot, (sp, dl) in enumerate(zip(srcs[v], deltas[v])):
-            # ring slot dl-1 holds the value produced dl cycles ago
-            flat = (dl - 1) * pes + sp
-            (route_a if slot == 0 else route_b)[k, pe, flat] = 1.0
             src_pe[k, pe, slot] = sp
             src_delta[k, pe, slot] = dl
 
+    # the firing nodes step by step, each step's in ascending PE order
+    k, pe = np.nonzero(node_at >= 0)
+    nodes = node_at[k, pe]
+    is_input = np.asarray(dfg.ops) == "input"
+    slot_of = np.where(is_input, np.cumsum(is_input) - 1, -1)
+    tables = SimTables.from_numpy(
+        ii=ii, num_pes=pes, num_inputs=int(is_input.sum()),
+        step_ptr=np.concatenate([[0], np.cumsum(np.bincount(k, minlength=ii))]),
+        pe=pe, op=op_id[k, pe], t0=np.asarray(t_abs)[nodes],
+        src_pe=src_pe[k, pe], src_delta=src_delta[k, pe], imm=imm[k, pe],
+        in_slot=slot_of[nodes],
+    )
     return CGRAProgram(
-        mapping=mapping, ii=ii, ring=ring, num_pes=pes,
-        route_a=route_a, route_b=route_b, op_sel=op_sel, imm=imm,
-        op_id=op_id, node_at=node_at, src_pe=src_pe, src_delta=src_delta,
+        mapping=mapping, ii=ii, ring=ring, num_pes=pes, imm=imm, op_id=op_id,
+        node_at=node_at, src_pe=src_pe, src_delta=src_delta, tables=tables,
     )
 
 
@@ -219,17 +202,17 @@ def cgra_run(
     same row of the device's stacked streams is issued at once, so that it
     overlaps the next row's host copy. The block comes from torch's caching
     host allocator, which pins a block once per power-of-two size and hands
-    it out again only after the copies recorded on it have ended; ``obs``
-    counts these calls as ``exec.staged_calls``. With inputs already on the card, and on
-    the CPU, everything runs on the caller's stream and nothing is pinned.
+    it out again only after the copies recorded on it have ended. With
+    inputs already on the card, and on the CPU, everything runs on the
+    caller's stream and nothing is pinned.
     Every host copy out of the caller's buffers has ended when the call
     returns, so the caller may overwrite its host buffers as soon as the
     call returns.
 
     ``obs`` spans mark its steps, with no work or synchronisation of their
     own: ``exec.run`` the whole call; inside it ``cgra_sim.fill`` (the
-    trace's zeros), ``exec.tables`` (the host tables and their copies to
-    the device), ``exec.inputs`` (the streams' copies to the device),
+    trace's zeros), ``exec.tables`` (``program.tables``' copies to the
+    device), ``exec.inputs`` (the streams' copies to the device),
     ``cgra_sim``'s ``cgra_sim.launch``, and ``exec.gather`` (the stores'
     indexing).
     """
@@ -252,7 +235,7 @@ def cgra_run(
         copy = _copy_stream(dev) if dev.type == "cuda" and not on_card else None
         with torch.cuda.stream(copy) if copy is not None else contextlib.nullcontext():
             with obs.span("exec.tables"):
-                tables = program.sim_tables().to(dev)
+                tables = program.tables.to(dev)
             with obs.span("exec.inputs"):
                 if copy is not None:
                     stacked = _stage([inputs[v] for v in nodes], (num_iters, batch), dev)
@@ -267,7 +250,6 @@ def cgra_run(
             for t in (stacked, *(getattr(tables, k) for k in SimTables.TENSOR_FIELDS)):
                 t.record_stream(caller)
             obs.incr("exec.copy_stream_calls")
-            obs.incr("exec.staged_calls")
         trace = cgra_sim(tables, stacked, trace=trace)
         with obs.span("exec.gather"):
             m = program.mapping

@@ -44,7 +44,8 @@ from the events' times, as ``tools/trace_report.py`` does.
 
 * ``exec.copy_stream_calls``: ``kernels/ops.py::cgra_run`` calls whose
   host-to-device copies ran on the executor's copy stream behind the
-  trace's enqueued zero fill (CUDA calls with no input on the card).
+  trace's enqueued zero fill, the streams staged through page-locked
+  memory (CUDA calls with no input on the card).
 
 Serialization is the Chrome trace-event JSON flavor (``"X"`` complete
 events, ``"i"`` instants, ``"M"`` metadata) that Perfetto / ``chrome://

@@ -63,7 +63,7 @@ def test_kernel_matches_plain_and_oracle(cuda, case):
     outs, trace = cgra_run(prog, inputs, num_iters)          # default: CUDA
     assert cgra_sim.launches == before + 1
     assert trace.device.type == "cuda"
-    tables = prog.sim_tables().to(cuda)
+    tables = prog.tables.to(cuda)
     x = torch.stack([torch.as_tensor(inputs[v], device=cuda)
                      for v in prog.input_nodes()])
     assert torch.equal(trace, cgra_sim_torch(tables, x))
@@ -100,7 +100,6 @@ def test_cgra_run_on_the_card_equals_the_cpu_path(cuda, kind, caller):
         outs, trace = cgra_run(prog, given, num_iters)
         stream.synchronize()
     assert tracer.counters.get("exec.copy_stream_calls", 0) == int(kind != "cuda_tensor")
-    assert tracer.counters.get("exec.staged_calls", 0) == int(kind != "cuda_tensor")
     _same(outs, trace, *want)
 
 
@@ -166,7 +165,7 @@ def test_staged_calls_of_other_input_counts_back_to_back(cuda):
     want = [cgra_run(p, _streams(p, n, b, seed=i), n, device="cpu")
             for i, (p, n, b) in enumerate(cases)]
     for p, _, _ in cases[:4]:
-        p.sim_tables = lambda tables=p.sim_tables().to(cuda): tables
+        p.tables = p.tables.to(cuda)
 
     def run_all():
         got = []
@@ -184,7 +183,7 @@ def test_staged_calls_of_other_input_counts_back_to_back(cuda):
             torch.cuda._sleep(400_000_000)
         got = run_all()
         torch.cuda.synchronize()
-    assert tracer.counters.get("exec.staged_calls", 0) == len(cases)
+    assert tracer.counters.get("exec.copy_stream_calls", 0) == len(cases)
     for (outs, trace), w in zip(got, want):
         _same(outs, trace, *w)
 
@@ -235,12 +234,12 @@ def test_staged_calls_from_threads_on_one_device(cuda):
 
 def test_kernel_rejects_bad_input(cuda):
     prog = _program(running_example(), (2, 2))
-    tables = prog.sim_tables().to(cuda)
+    tables = prog.tables.to(cuda)
     x = torch.zeros((tables.num_inputs, 3, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         cgra_sim(tables, x.double())
     with pytest.raises(ValueError, match="table"):
-        cgra_sim(prog.sim_tables(), x)                        # tables on the host
+        cgra_sim(prog.tables, x)                              # tables on the host
     with pytest.raises(ValueError, match="contiguous"):
         cgra_sim(tables, x.transpose(1, 2).contiguous().transpose(1, 2))
 
@@ -279,7 +278,7 @@ def test_anneal_50x50_mapping_runs_on_the_card(cuda):
     inputs = {v: rng.uniform(-4, 4, (num_iters, batch)).astype(np.float32)
               for v in prog.input_nodes()}
     _, trace = cgra_run(prog, inputs, num_iters)
-    tables = prog.sim_tables().to(cuda)
+    tables = prog.tables.to(cuda)
     x = torch.stack([torch.as_tensor(inputs[v], device=cuda)
                      for v in prog.input_nodes()])
     assert torch.equal(trace, cgra_sim_torch(tables, x))
@@ -527,7 +526,7 @@ def test_fuzz_chunk_runs_on_the_card(cuda, fabric):
         before = cgra_sim.launches
         _, trace = cgra_run(prog, inputs, num_iters)
         assert cgra_sim.launches == before + 1
-        tables = prog.sim_tables().to(cuda)
+        tables = prog.tables.to(cuda)
         x = (torch.stack([torch.as_tensor(inputs[v], device=cuda)
                           for v in prog.input_nodes()]) if inputs
              else torch.zeros((0, num_iters, 1), device=cuda))

@@ -30,14 +30,28 @@ from repro.kernels.ref import cgra_sim_reference as jcgra_sim_reference
 from repro_torch import obs
 from repro_torch.interop import mapping_from_plain, plain_mapping
 from repro_torch.kernels import ops
-from repro_torch.kernels.cgra_sim import SimTables, cgra_sim, cgra_sim_torch
+from repro_torch.kernels.cgra_sim import NOPS, SimTables, cgra_sim, cgra_sim_torch
 from repro_torch.kernels.cgra_sim import _mask16 as torch_mask16
 from repro_torch.kernels.ops import build_injection, cgra_run, compile_program
 from repro_torch.kernels.ref import _mask16 as ref_mask16
 from repro_torch.kernels.ref import cgra_sim_reference
 
-_TABLES = ("route_a", "route_b", "op_sel", "imm", "op_id", "node_at",
-           "src_pe", "src_delta")
+_ONE_HOT = ("route_a", "route_b", "op_sel")      # the port derives these in _one_hot
+_GRIDS = ("imm", "op_id", "node_at", "src_pe", "src_delta")
+
+
+def _one_hot(prog):
+    """The reference's one-hot routing and opcode tables, made from the
+    port's grids: operand slot s of the node at (k, pe) reads ring slot
+    delta - 1 of PE src_pe."""
+    ii, pes = prog.op_id.shape
+    route = np.zeros((2, ii, pes, prog.ring * pes), np.float32)
+    op_sel = np.zeros((ii, pes, NOPS), np.float32)
+    k, pe = np.nonzero(prog.op_id >= 0)
+    op_sel[k, pe, prog.op_id[k, pe]] = 1.0
+    k, pe, s = np.nonzero(prog.src_pe >= 0)
+    route[s, k, pe, (prog.src_delta[k, pe, s] - 1) * pes + prog.src_pe[k, pe, s]] = 1.0
+    return {"route_a": route[0], "route_b": route[1], "op_sel": op_sel}
 
 
 def _opcover():
@@ -108,8 +122,9 @@ def _inputs(prog, num_iters, batch, seed=0):
 def test_lowering_matches_reference(name):
     jprog, prog, num_iters, batch = _case(name)
     assert (prog.ii, prog.ring, prog.num_pes) == (jprog.ii, jprog.ring, jprog.num_pes)
-    for f in _TABLES:
-        a, b = getattr(prog, f), getattr(jprog, f)
+    mine = {**_one_hot(prog), **{f: getattr(prog, f) for f in _GRIDS}}
+    for f in _ONE_HOT + _GRIDS:
+        a, b = mine[f], getattr(jprog, f)
         assert a.dtype == b.dtype and np.array_equal(a, b), f
     inputs = _inputs(prog, num_iters, batch)
     for a, b in zip(build_injection(prog, inputs, num_iters),
@@ -182,16 +197,34 @@ def test_cpu_runs_launch_no_kernel():
     before = cgra_sim.launches
     _, prog, num_iters, batch = _case("running_example_2x2_b8")
     cgra_run(prog, _inputs(prog, num_iters, batch), num_iters, device="cpu")
-    tables = prog.sim_tables()
+    tables = prog.tables
     x = torch.zeros((tables.num_inputs, 2, 3))
     assert torch.equal(cgra_sim(tables, x), cgra_sim_torch(tables, x))
     assert cgra_sim.launches == before
 
 
+def test_cgra_run_builds_no_tables(monkeypatch):
+    """``compile_program`` builds the executor's tables once; a run only
+    reads them."""
+    _, prog, num_iters, batch = _case("opcover_3x3")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cgra_run built tables")
+
+    monkeypatch.setattr(SimTables, "from_numpy", refuse)
+    inputs = _inputs(prog, num_iters, batch)
+    outs, trace = cgra_run(prog, inputs, num_iters, device="cpu")
+    ref_outs, ref_trace = cgra_sim_reference(prog, inputs, num_iters)
+    np.testing.assert_array_equal(trace.numpy(), ref_trace)
+    assert sorted(outs) == sorted(ref_outs)
+    for v in outs:
+        np.testing.assert_array_equal(outs[v].numpy(), ref_outs[v])
+
+
 def test_cpu_run_makes_no_stream_and_counts_no_copy_stream_call(monkeypatch):
     """The CPU path keeps its plain code: no CUDA stream is made or entered,
     no memory is pinned, and no call is counted as one whose copies ran on
-    the copy stream or were staged."""
+    the copy stream."""
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU run touched a CUDA stream or pinned memory")
 
@@ -212,14 +245,13 @@ def test_cpu_run_makes_no_stream_and_counts_no_copy_stream_call(monkeypatch):
     with obs.tracing() as tracer:
         outs, trace = cgra_run(prog, inputs, num_iters, device="cpu")
     assert tracer.counters.get("exec.copy_stream_calls", 0) == 0
-    assert tracer.counters.get("exec.staged_calls", 0) == 0
     assert trace.device.type == "cpu" and all(o.device.type == "cpu" for o in outs.values())
 
 
 @pytest.mark.parametrize("name", ["running_example_2x2_b8", "opcover_3x3", "accum_2x2"])
 def test_cgra_sim_with_a_zeroed_trace_equals_cgra_sim_without(name):
     _, prog, num_iters, batch = _case(name)
-    tables = prog.sim_tables()
+    tables = prog.tables
     inputs = _inputs(prog, num_iters, batch)
     x = torch.stack([torch.from_numpy(inputs[v]) for v in prog.input_nodes()])
     given = torch.zeros((tables.num_cycles(num_iters), tables.num_pes, batch))
@@ -230,7 +262,7 @@ def test_cgra_sim_with_a_zeroed_trace_equals_cgra_sim_without(name):
 
 def test_cgra_sim_rejects_a_trace_of_another_shape_or_dtype():
     _, prog, num_iters, batch = _case("running_example_2x2_b8")
-    tables = prog.sim_tables()
+    tables = prog.tables
     x = torch.zeros((tables.num_inputs, num_iters, batch))
     shape = (tables.num_cycles(num_iters), tables.num_pes, batch)
     for bad in (torch.zeros(shape[:2] + (batch + 1,)), torch.zeros(shape, dtype=torch.float64),
@@ -271,7 +303,7 @@ def test_cuda_without_a_gpu_raises():
 
 def test_wrapper_and_tables_reject_bad_input():
     _, prog, num_iters, batch = _case("running_example_2x2_b8")
-    tables = prog.sim_tables()
+    tables = prog.tables
     good = torch.zeros((tables.num_inputs, num_iters, batch))
     with pytest.raises(ValueError, match="float32"):
         cgra_sim(tables, good.double())
